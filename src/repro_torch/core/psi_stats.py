@@ -1,0 +1,141 @@
+"""Sufficient statistics of the collapsed sparse-GP bound (paper §2).
+
+Counterpart of `repro.core.psi_stats`. Everything the bound needs from the
+N datapoints is reduced to
+
+    stats.psi0   scalar   sum_n <k(x_n, x_n)>
+    stats.psi2   (M, M)   sum_n <k_fu(x_n)^T k_fu(x_n)>     ("Phi" in the paper)
+    stats.psiY   (M, D)   sum_n <k_fu(x_n)>^T y_n           ("Psi" in the paper)
+    stats.yy     scalar   sum_n y_n y_n^T
+    stats.n      scalar   number of datapoints accumulated
+
+All five are plain sums over n, so `SuffStats` is a commutative monoid
+under `combine` (with `subtract` as its inverse).
+
+`backend="fused"` routes the RBF statistics through the fused op
+(`repro_torch.kernels.ops.suffstats`: the CUDA kernel on the card, its
+plain version on the CPU; the exact path rides it with S = 0);
+`backend="jnp"` keeps the name of the reference's plain path and computes
+with plain PyTorch (a chunked loop over N for Psi2). `backend="pallas"`
+(the single-statistic kernels) comes with a later slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import ref
+
+
+def _rbf_variance(kern_params) -> torch.Tensor:
+    return torch.exp(kern_params["log_variance"])
+
+
+def _rbf_lengthscale(kern_params) -> torch.Tensor:
+    return torch.exp(kern_params["log_lengthscale"])
+
+
+class SuffStats(NamedTuple):
+    psi0: torch.Tensor  # scalar
+    psi2: torch.Tensor  # (M, M)
+    psiY: torch.Tensor  # (M, D)
+    yy: torch.Tensor  # scalar
+    n: torch.Tensor  # scalar (float, like the reference)
+
+    @staticmethod
+    def combine(a: "SuffStats", b: "SuffStats") -> "SuffStats":
+        return SuffStats(*(x + y for x, y in zip(a, b)))
+
+    @staticmethod
+    def subtract(a: "SuffStats", b: "SuffStats") -> "SuffStats":
+        """Monoid inverse: remove `b`'s datapoints from `a`. Exact algebra,
+        but floating cancellation can leave `a - b` indefinite when b
+        carries most of a's mass — hence the serving-layer downdate's
+        condition guard (repro_torch.serve.online)."""
+        return SuffStats(*(x - y for x, y in zip(a, b)))
+
+
+def _check_backend(backend: str) -> None:
+    if backend == "pallas":
+        raise NotImplementedError(
+            "backend='pallas' (the single-statistic kfu/psi1/psi2 kernels) "
+            "comes with a later slice of the port; use 'fused' or 'jnp'")
+    if backend not in ("jnp", "fused"):
+        raise ValueError(f"backend must be 'jnp' or 'fused', got {backend!r}")
+
+
+def _count(X: torch.Tensor) -> torch.Tensor:
+    return X.new_full((), float(X.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# exact statistics (deterministic X)
+# ---------------------------------------------------------------------------
+
+def exact_stats_rbf(kern_params, X, Y, Z, *, backend: str = "jnp",
+                    bwd_backend: str = "auto") -> SuffStats:
+    _check_backend(backend)
+    variance = _rbf_variance(kern_params)
+    lengthscale = _rbf_lengthscale(kern_params)
+    if backend == "fused":
+        # S -> 0 collapses the expected statistics to the exact ones, so the
+        # supervised path rides the same fused kernel
+        from repro_torch.kernels import ops
+
+        psi2, psiY = ops.suffstats(X, torch.zeros_like(X), Y, Z, variance,
+                                   lengthscale, bwd_backend=bwd_backend)
+    else:
+        Kfu = ref.kfu_rbf(X, Z, variance, lengthscale)
+        psi2, psiY = Kfu.T @ Kfu, Kfu.T @ Y
+    return SuffStats(psi0=X.shape[0] * variance, psi2=psi2, psiY=psiY,
+                     yy=(Y * Y).sum(), n=_count(X))
+
+
+# ---------------------------------------------------------------------------
+# expected statistics under q(X) (Bayesian GP-LVM)
+# ---------------------------------------------------------------------------
+
+def _psi2_rbf_chunked(mu, S, Z, variance, lengthscale, *,
+                      chunk: int = 256) -> torch.Tensor:
+    """Psi2 accumulated over N in chunks: O(chunk * M^2) live memory — the
+    paper's GPU kernel structure (Table 1) as a plain loop: the (M, M)
+    accumulator stays resident while datapoints stream through."""
+    N, Q = mu.shape
+    M = Z.shape[0]
+    l2 = lengthscale**2
+    zdiff = Z[:, None, :] - Z[None, :, :]
+    zterm = -(zdiff**2 / (4.0 * l2)).sum(-1)
+    zbar = 0.5 * (Z[:, None, :] + Z[None, :, :])
+    acc = mu.new_zeros(M, M)
+    for i in range(0, N, chunk):
+        mu_i, S_i = mu[i:i + chunk], S[i:i + chunk]
+        denom = l2[None, :] + 2.0 * S_i
+        lognorm = -0.5 * torch.log1p(2.0 * S_i / l2[None, :]).sum(-1)
+        expo = mu_i.new_zeros(mu_i.shape[0], M, M)
+        for q in range(Q):  # Q is small (latent dim)
+            d = mu_i[:, None, None, q] - zbar[None, :, :, q]
+            expo = expo - d * d / denom[:, None, None, q]
+        acc = acc + torch.exp(lognorm[:, None, None] + expo).sum(0)
+    return variance**2 * torch.exp(zterm) * acc
+
+
+def expected_stats_rbf(kern_params, mu, S, Y, Z, *, backend: str = "jnp",
+                       bwd_backend: str = "auto",
+                       psi2_chunk: int = 256) -> SuffStats:
+    _check_backend(backend)
+    variance = _rbf_variance(kern_params)
+    lengthscale = _rbf_lengthscale(kern_params)
+    if backend == "fused":
+        # one pass over N producing (psi2, psiY) together
+        from repro_torch.kernels import ops
+
+        psi2, psiY = ops.suffstats(mu, S, Y, Z, variance, lengthscale,
+                                   bwd_backend=bwd_backend)
+    else:
+        psi1 = ref.psi1_rbf(mu, S, Z, variance, lengthscale)
+        psi2 = _psi2_rbf_chunked(mu, S, Z, variance, lengthscale,
+                                 chunk=psi2_chunk)
+        psiY = psi1.T @ Y
+    return SuffStats(psi0=mu.shape[0] * variance, psi2=psi2, psiY=psiY,
+                     yy=(Y * Y).sum(), n=_count(mu))

@@ -1,0 +1,56 @@
+"""The port stands alone: importing every `repro_torch` module and
+`chip_smoke` pulls in neither `jax` nor anything of `repro`, and an entry
+point called without ``device=`` on a host with no CUDA device raises
+instead of quietly running on the CPU."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), leaked)
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, leaked = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 15  # every module of the slice was imported
+    assert leaked == "[]", leaked
+
+
+def test_entry_points_default_to_cuda_and_refuse_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device: the default is legitimate")
+    from repro_torch import convert
+    from repro_torch.gp import get
+    from repro_torch.serve import GPServer
+
+    params = {"kern": {"log_variance": 0.0, "log_lengthscale": np.zeros(1)},
+              "Z": np.zeros((3, 1)), "log_beta": 0.0}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPServer()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.params_from_numpy(params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get("rbf")(1).init()
+    # the same calls run where the caller asks for the CPU
+    GPServer(device="cpu").close()
+    assert convert.params_from_numpy(params, device="cpu")["Z"].device.type == "cpu"
