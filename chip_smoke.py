@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -7,14 +7,17 @@ Phases (any failure exits non-zero and prints no result):
 
 1. Device: a CUDA device is required (no CPU fallback); prints
    `nvidia-smi --query-gpu=name,power.limit` for the card.
-2. Build: every kernel library is compiled from `src/repro_torch/kernels/
-   csrc` (one nvcc per source, all at once) into `build/`.
-3. Kernel vs plain version on the card: the fused psi-statistics kernel
-   against `suffstats_fused_plain` in float64, at the paper's shape
+2. Build: every kernel library (the forward and the reverse psi-statistics
+   kernels) is compiled from `src/repro_torch/kernels/csrc` (one nvcc per
+   source, all at once) into `build/`.
+3. Kernels vs plain versions on the card, at the paper's shape
    (N = 1,000,003, M = 100, Q = 1, D = 3) and at N = 100,003, M = 256,
-   Q = 4, D = 5, each with S > 0 (GP-LVM) and S = 0 (SGPR). Float64 kernel
-   within 1e-10 and float32 kernel within 1e-4 of the float64 plain
-   version, relative to max|plain|; two kernel runs bitwise equal.
+   Q = 4, D = 5, each with S > 0 (GP-LVM) and S = 0 (SGPR): the forward
+   kernel against `suffstats_fused_plain`, the reverse kernel against
+   `suffstats_vjp_plain` with random output cotangents. Float64 kernels
+   within 1e-10 and float32 kernels within 1e-4 of the float64 plain
+   version, relative to max|plain| per output; two kernel runs bitwise
+   equal.
 4. Serving at the paper's §4 scale (N = 1e6, M = 100, Q = 1, D = 3; data
    and parameters from a numpy seed): a GP-LVM state from q(X) and an SGPR
    state from (X, Y), built through `suff_stats(backend="fused")`, served
@@ -24,9 +27,19 @@ Phases (any failure exits non-zero and prints no result):
    steps through the plain statistics path (backend="jnp") on the card;
    the float32 run to the float64 one. The kernel's launch count over each
    run must be > 0.
-5. Times, with the card's name and power limit: the kernel and the plain
+5. Training at the paper's shape, in float32 and float64: a
+   `BayesianGPLVM` fitted to the GP-LVM data's Y and a
+   `SparseGPRegression` fitted to the SGPR data's (X, Y), 10 Adam steps
+   each through backend="fused". Losses finite and the last below the
+   first; each step launches the forward and the reverse kernel once. The
+   float64 GP-LVM's first 3 steps through the reverse kernel are held
+   against the same steps with bwd_backend="jnp" (the plain reverse pass on
+   the card). Each fitted model is then registered with a `GPServer`,
+   served at B = 1 and 256 and touched up with `refit` (loss non-increasing).
+6. Times, with the card's name and power limit: each kernel and its plain
    version at the paper's shape (median of CUDA-event timings), the
-   kernel's bound, and predict p50 at B = 1 and B = 256.
+   kernels' bounds, predict p50 at B = 1 and B = 256, and the median
+   training-step time after the first step for both models and dtypes.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -47,7 +60,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.gp import ExactBatch, ExpectedBatch, get, suff_stats  # noqa: E402
+from repro_torch.core import inference  # noqa: E402
+from repro_torch.gp import (BayesianGPLVM, ExactBatch, ExpectedBatch,  # noqa: E402
+                            SparseGPRegression, get, suff_stats)
+from repro_torch.optim import AdamConfig, adam_init, adam_update  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import suffstats as ss  # noqa: E402
 from repro_torch.serve import GPServer, build_state  # noqa: E402
@@ -69,6 +85,15 @@ VAR_TOL_F32 = 1e-2
 SUBMIT_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 UPDATE_N = 65_536
 BATCHES = (1, 16, 256, 300)
+TRAIN_STEPS = 10
+COMPARE_STEPS = 3
+# float64 GP-LVM steps through the reverse kernel vs through the plain
+# reverse pass: the same forward, gradients equal to ~1e-13, but Adam rounds
+# each parameter to float32 before its step, so a parameter can land one
+# float32 ulp apart and carry that on; losses and parameters (relative to
+# max|leaf|) within 1e-5
+TRAJ_TOL = 1e-5
+TIMED_STEPS = 6  # the first is dropped
 
 # NVIDIA H100 SXM published peaks (data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -80,6 +105,9 @@ SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 ROUTE = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/suffstats_fwd.cu",
          "replaces": "src/repro/kernels/suffstats.py:299", "library_ms": None}
+ROUTE_BWD = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/suffstats_bwd.cu",
+             "replaces": "src/repro/kernels/suffstats.py:463", "library_ms": None}
+BWD_OUTPUTS = ("dmu", "dS", "dY", "dZ", "dvariance", "dlengthscale")
 
 
 class SmokeFailure(Exception):
@@ -157,6 +185,38 @@ def phase_kernels() -> dict:
                     check(bool(torch.isfinite(g).all()), f"{name} not finite")
                     check(r <= tol, f"{name} {dt} rel err {r:.3e} > {tol:g}")
                     check(torch.equal(g, a), f"{name} {dt}: two runs differ")
+                    if (N, M, Q, D) == KERNEL_SHAPES[0]:
+                        errs[dt] = max(errs[dt], float((g.double() - w).abs().max()))
+    return errs
+
+
+def bwd_cotangents(M, D, seed=SEED + 1):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(a, device="cuda") for a in
+            (rng.normal(size=(M, M)), rng.normal(size=(M, D)))]
+
+
+def phase_bwd_kernels() -> dict:
+    """Reverse kernel vs plain reverse pass on every shape; returns the max
+    abs error per dtype at the paper's shape."""
+    errs = {torch.float64: 0.0, torch.float32: 0.0}
+    for N, M, Q, D in KERNEL_SHAPES:
+        for pos_S in (True, False):
+            x64 = kernel_inputs(N, M, Q, D, pos_S) + bwd_cotangents(M, D)
+            want = ss.suffstats_vjp_plain(*x64)
+            for dt, tol in TOL.items():
+                x = [a.to(dt) for a in x64]
+                got = ss.suffstats_bwd_cuda(*x)
+                again = ss.suffstats_bwd_cuda(*x)
+                torch.cuda.synchronize()
+                for name, g, a, w in zip(BWD_OUTPUTS, got, again, want):
+                    r = rel_err(g, w)
+                    log(f"[kernel] bwd N={N} M={M} Q={Q} D={D} S{'>' if pos_S else '='}0 "
+                        f"{str(dt)[6:]} {name}: rel err {r:.3e} (tol {tol:g})")
+                    check(g.shape == w.shape and g.dtype == dt, f"{name} shape/dtype")
+                    check(bool(torch.isfinite(g).all()), f"{name} not finite")
+                    check(r <= tol, f"bwd {name} {dt} rel err {r:.3e} > {tol:g}")
+                    check(torch.equal(g, a), f"bwd {name} {dt}: two runs differ")
                     if (N, M, Q, D) == KERNEL_SHAPES[0]:
                         errs[dt] = max(errs[dt], float((g.double() - w).abs().max()))
     return errs
@@ -348,7 +408,136 @@ def phase_serving(data: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times and the bound
+# phase 5: training at full size, then serving the fitted models
+# ---------------------------------------------------------------------------
+
+def _as(a, dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(a, device="cuda", dtype=dtype)
+
+
+def fit_models(data: dict, dtype: torch.dtype) -> dict:
+    """The training path as a user drives it: both facades fitted
+    TRAIN_STEPS Adam steps through backend="fused", every loss logged. The
+    GP-LVM starts from the facade's own init. The SGPR starts from the
+    serving phase's kernel and inducing grid with the facade's default
+    noise (log_beta = 2): its default init (lengthscale 1, 100 inducing
+    points drawn from X over 6 lengthscales) leaves Kuu + beta Psi2
+    numerically indefinite in float32 at N = 1e6 (the loss is NaN)."""
+    lvm = BayesianGPLVM(M=PAPER[1], Q=1, backend="fused", device="cuda").fit(
+        _as(data["Y_lvm"], dtype), steps=TRAIN_STEPS, log_every=1)
+    sgpr = SparseGPRegression(M=PAPER[1], backend="fused", device="cuda").fit(
+        _as(data["X"], dtype), _as(data["Y"], dtype), steps=TRAIN_STEPS, log_every=1,
+        params=convert.params_from_numpy({**data["params"], "log_beta": 2.0},
+                                         device="cuda", dtype=dtype))
+    torch.cuda.synchronize()
+    return {"gplvm": lvm, "sgpr": sgpr}
+
+
+def serve_fitted(models: dict, dtype: torch.dtype) -> None:
+    """Register each fitted facade, predict at B = 1 and 256 (the served
+    state against the facade's own posterior), refit the noise."""
+    Xt = torch.linspace(-2.5, 2.5, 256, device="cuda", dtype=dtype)[:, None]
+    tol = SUBMIT_TOL[dtype]
+    with GPServer(device="cuda") as srv:
+        for key, model in models.items():
+            srv.register(key, model)
+            for B in (1, 256):
+                mean, var = srv.predict(key, Xt[:B])
+                want_mean, want_var = model.predict(Xt[:B])
+                check(mean.shape == (B, 3) and var.shape == (B,), f"{key} B={B} shape")
+                check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+                      f"{key} B={B}: served answer not finite")
+                err = max(rel_err(mean, want_mean), rel_err(var, want_var))
+                check(err <= tol, f"{key} B={B}: served {err:.3e} vs the facade's predict")
+            history = srv.refit(key, steps=20)
+            log(f"[serve] {str(dtype)[6:]} fitted {key}: refit loss {history[0]:.6f} -> "
+                f"{history[-1]:.6f}")
+            check(len(history) == 2 and all(np.isfinite(history)),
+                  f"{key}: refit history {history}")
+            check(history[-1] <= history[0], f"{key}: refit raised the loss {history}")
+            mean, _ = srv.predict(key, Xt)
+            check(bool(torch.isfinite(mean).all()), f"{key}: refitted answer not finite")
+
+
+def _leaves(params: dict) -> dict:
+    return {"log_variance": params["kern"]["log_variance"],
+            "log_lengthscale": params["kern"]["log_lengthscale"],
+            **{k: params[k] for k in ("Z", "log_beta", "q_mu", "q_logS")}}
+
+
+def compare_bwd_paths(data: dict) -> None:
+    """The float64 GP-LVM through the reverse kernel against the same
+    model through the plain reverse pass: the gradients at the same
+    parameters, then COMPARE_STEPS Adam steps. Inducing points sit on a
+    grid over the latent means, 0.75 lengthscales apart: with Z drawn from
+    q(X) (100 points within ~3.4 lengthscales) cond(Kuu) ~1e6 turns the
+    float32-ulp parameter differences that Adam's rounding leaves into
+    large gradient differences for Z and the kernel, and the comparison
+    would measure the conditioning, not the reverse pass."""
+    Y = _as(data["Y_lvm"], torch.float64)
+    M = PAPER[1]
+    p0 = BayesianGPLVM(M=M, Q=1, device="cuda").init_params(Y)
+    lo, hi = float(p0["q_mu"].min()), float(p0["q_mu"].max())
+    p0["Z"] = torch.linspace(lo, hi, M, device="cuda", dtype=torch.float64)[:, None]
+    p0["kern"]["log_lengthscale"].fill_(float(np.log((hi - lo) / (M - 1) / 0.75)))
+    models = {bwd: BayesianGPLVM(M=M, Q=1, backend="fused", bwd_backend=bwd,
+                                 device="cuda") for bwd in ("auto", "jnp")}
+    grads = {}
+    for bwd, model in models.items():
+        before = ss.BWD_LAUNCHES
+        _, grads[bwd] = inference.value_and_grad(model._loss, p0, (Y,))
+        model.fit(Y, steps=COMPARE_STEPS, log_every=1, params=p0)
+        torch.cuda.synchronize()
+        check(ss.BWD_LAUNCHES - before == (COMPARE_STEPS + 1 if bwd == "auto" else 0),
+              f"bwd_backend={bwd}: reverse kernel launches")
+    for name, g in _leaves(grads["auto"]).items():
+        w = _leaves(grads["jnp"])[name]
+        # float32 leaves get the float64 gradient rounded to float32
+        tol = TOL[torch.float64] if g.dtype == torch.float64 else 1e-6
+        err = rel_err(g, w)
+        log(f"[train] float64 gplvm gradient {name} ({str(g.dtype)[6:]}): reverse kernel "
+            f"vs plain rel err {err:.3e} (tol {tol:g})")
+        check(err <= tol, f"gradient {name}: {err:.3e} > {tol:g}")
+    kernel, plain = models["auto"], models["jnp"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(kernel.history, plain.history))
+    log(f"[train] float64 gplvm, {COMPARE_STEPS} steps, reverse kernel vs plain reverse "
+        f"pass: loss rel err {loss_err:.3e} (tol {TRAJ_TOL:g})")
+    check(loss_err <= TRAJ_TOL, f"trajectory losses differ by {loss_err:.3e}")
+    for name, a in _leaves(kernel.params).items():
+        err = rel_err(a, _leaves(plain.params)[name])
+        log(f"[train]   parameter {name}: rel err {err:.3e} (tol {TRAJ_TOL:g})")
+        check(err <= TRAJ_TOL, f"trajectory parameter {name} differs by {err:.3e}")
+
+
+def phase_training(data: dict) -> dict:
+    """Returns the fitted models and both kernels' launches per dtype."""
+    result = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        ss.LAUNCHES = ss.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        models = fit_models(data, dtype)
+        fwd, bwd = ss.LAUNCHES, ss.BWD_LAUNCHES
+        log(f"[train] {name}: 2 models x {TRAIN_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s; {fwd} forward and {bwd} reverse "
+            f"kernel launches")
+        check(fwd == bwd == 2 * TRAIN_STEPS,
+              f"{name}: expected one forward and one reverse launch per step")
+        for key, model in models.items():
+            h = model.history
+            log(f"[train] {name} {key}: loss {h[0]:.6f} -> {h[-1]:.6f} over {len(h)} steps")
+            check(len(h) == TRAIN_STEPS and all(np.isfinite(h)), f"{name} {key}: losses {h}")
+            check(h[-1] < h[0], f"{name} {key}: the loss did not decrease")
+        serve_fitted(models, dtype)
+        check(ss.LAUNCHES == fwd + len(models) and ss.BWD_LAUNCHES == bwd,
+              f"{name}: serving a fitted model should add one forward launch each")
+        result[dtype] = {"models": models, "launches": {"fwd": fwd, "bwd": bwd}}
+    compare_bwd_paths(data)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6: times and the bounds
 # ---------------------------------------------------------------------------
 
 def bound_ms(N, M, Q, D, dtype) -> float:
@@ -368,6 +557,43 @@ def bound_ms(N, M, Q, D, dtype) -> float:
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, t_ops)
 
 
+def bwd_bound_ms(N, M, Q, D, dtype) -> float:
+    """Least time for the reverse pass's work at this shape, counted as for
+    the forward: the forward's exponentials once (M (M + 1) / 2 pairs and
+    M psi1 terms per point) and ~(10 Q + 8) flops per (point, pair) and
+    ~(6 Q + 4 D + 4) per (point, m); bytes: the inputs (with g2, gY) read
+    once and the cotangents written once."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * (2 * N * (2 * Q + D) + 2 * M * Q + 2 * M * M
+                         + 2 * M * D + 3 * Q + 2)
+    pairs = N * M * (M + 1) // 2
+    exps = pairs + N * M
+    flops = pairs * (10 * Q + 8) + N * M * (6 * Q + 4 * D + 4)
+    if dtype == torch.float32:
+        t_ops = max(flops / FP32_PER_S, exps / SFU_EXP_PER_S)
+    else:
+        t_ops = (flops + exps) / FP64_PER_S
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, t_ops)
+
+
+def step_ms(model) -> float:
+    """Median wall time of one training step after the first (loss, its
+    gradients through both kernels, the Adam update), from the fitted
+    parameters: host clock to a synchronize."""
+    config = AdamConfig(lr=1e-2, clip_norm=None, weight_decay=0.0)
+    params = model.params
+    state = adam_init(params, config)
+    times = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = inference.value_and_grad(model._loss, params, model._data)
+        params, state, _ = adam_update(grads, state, params, config)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median of per-call CUDA-event timings after warm-up."""
     for _ in range(warmup):
@@ -383,21 +609,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def phase_times() -> dict:
+def phase_times(trained: dict) -> dict:
+    """Kernel, plain-version and training-step times; none of these
+    launches counts towards a main path."""
     N, M, Q, D = PAPER
     x64 = kernel_inputs(N, M, Q, D, True)
+    g64 = bwd_cotangents(M, D)
+    counts = (ss.LAUNCHES, ss.BWD_LAUNCHES)
     out = {}
     for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
         x = [a.to(dtype) for a in x64]
-        before = ss.LAUNCHES
+        g = [a.to(dtype) for a in g64]
         ms = cuda_ms(lambda: ss.suffstats_cuda(*x), reps=20)
-        ss.LAUNCHES = before  # timing launches are not the main path's
         plain_ms = cuda_ms(lambda: ss.suffstats_fused_plain(*x), reps=3, warmup=1)
-        out[dtype] = {"ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms(N, M, Q, D, dtype)}
-        log(f"[time] suffstats_fwd {str(dtype)[6:]} N={N} M={M} Q={Q} D={D}: "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{out[dtype]['bound_ms']:.3f} ms (operations)")
+        out[dtype, "fwd"] = {"ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms(N, M, Q, D, dtype)}
+        bms = cuda_ms(lambda: ss.suffstats_bwd_cuda(*x, *g), reps=10)
+        bplain_ms = cuda_ms(lambda: ss.suffstats_vjp_plain(*x, *g), reps=3, warmup=1)
+        out[dtype, "bwd"] = {"ms": bms, "plain_ms": bplain_ms,
+                             "bound_ms": bwd_bound_ms(N, M, Q, D, dtype)}
+        for what in ("fwd", "bwd"):
+            t = out[dtype, what]
+            log(f"[time] suffstats_{what} {name} N={N} M={M} Q={Q} D={D}: "
+                f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.3f} ms (operations)")
+        for key, model in trained[dtype]["models"].items():
+            log(f"[time] training step {name} {key} (N={N}, M={M}): "
+                f"{step_ms(model):.3f} ms median of {TIMED_STEPS - 1} after the first")
+    ss.LAUNCHES, ss.BWD_LAUNCHES = counts  # timing launches are not a main path's
     return out
 
 
@@ -406,26 +646,41 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
               "a CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        return result
+
     try:
         card = card_line()
         log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-        phase_build()
-        errs = phase_kernels()
+        phase("build", phase_build)
+        errs = phase("forward kernel vs plain", phase_kernels)
+        bwd_errs = phase("reverse kernel vs plain", phase_bwd_kernels)
         data = serving_data(PAPER[0], PAPER[1])
-        served = phase_serving(data)
-        times = phase_times()
+        served = phase("serving", phase_serving, data)
+        trained = phase("training", phase_training, data)
+        times = phase("times", phase_times, trained)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = []
     for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
         p50 = served[dtype]["p50"]
-        log(f"[time] predict p50 {str(dtype)[6:]}: B=1 {p50[1]:.3f} ms, "
-            f"B=256 {p50[256]:.3f} ms")
-        kernels.append({"name": f"suffstats_fwd_{str(dtype)[6:]}", **ROUTE,
+        log(f"[time] predict p50 {name}: B=1 {p50[1]:.3f} ms, B=256 {p50[256]:.3f} ms")
+        kernels.append({"name": f"suffstats_fwd_{name}", **ROUTE,
                         "launches": served[dtype]["launches"],
-                        "max_abs_err": errs[dtype], **times[dtype],
+                        "max_abs_err": errs[dtype], **times[dtype, "fwd"],
                         "bound_by": "operations"})
+        kernels.append({"name": f"suffstats_bwd_{name}", **ROUTE_BWD,
+                        "launches": trained[dtype]["launches"]["bwd"],
+                        "max_abs_err": bwd_errs[dtype], **times[dtype, "bwd"],
+                        "bound_by": "operations"})
+    log(f"[phase] total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,11 @@ run on the CUDA device unless the caller passes ``device="cpu"``. Every op
 whose JAX counterpart is a Pallas TPU kernel launches a hand-written CUDA
 kernel on a CUDA tensor and runs its plain PyTorch version on a CPU tensor.
 
-Ported so far (the serving slice): `kernels.ref`, `kernels.suffstats`
-(fused psi2 + psiY forward: plain version + CUDA kernel), `kernels.ops`,
-`core.psi_stats`, `core.svgp`, `gp.kernels` (RBF), `gp.stats`, `serve`
-(state, online update/downdate, `GPServer`) and `convert`.
+Ported so far (the serving and training slices): `kernels.ref`,
+`kernels.suffstats` (fused psi2 + psiY forward and its reverse pass: plain
+versions + CUDA kernels), `kernels.ops` (the differentiable op),
+`core.psi_stats`, `core.svgp`, `core.gplvm`, `core.inference`, `optim`
+(the reference's Adam), `gp.kernels` (RBF), `gp.stats`, `gp.models`
+(`SparseGPRegression`, `BayesianGPLVM`), `serve` (state, online
+update/downdate/refit, `GPServer`) and `convert`.
 """

@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ref
 
@@ -54,6 +55,15 @@ class SuffStats(NamedTuple):
         carries most of a's mass — hence the serving-layer downdate's
         condition guard (repro_torch.serve.online)."""
         return SuffStats(*(x - y for x, y in zip(a, b)))
+
+
+def checkpointed(fn, *args):
+    """fn(*args), recomputed in the backward pass instead of keeping its
+    intermediates (`torch.utils.checkpoint`, the counterpart of
+    `jax.checkpoint`); a plain call where no graph is being built."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def _check_backend(backend: str) -> None:
@@ -96,12 +106,27 @@ def exact_stats_rbf(kern_params, X, Y, Z, *, backend: str = "jnp",
 # expected statistics under q(X) (Bayesian GP-LVM)
 # ---------------------------------------------------------------------------
 
+def _psi2_chunk_sum(mu_i, S_i, zbar, l2) -> torch.Tensor:
+    """sum over one chunk of exp(lognorm2_n + muterm_n,m,m'): (M, M)."""
+    denom = l2[None, :] + 2.0 * S_i
+    lognorm = -0.5 * torch.log1p(2.0 * S_i / l2[None, :]).sum(-1)
+    M = zbar.shape[0]
+    expo = mu_i.new_zeros(mu_i.shape[0], M, M)
+    for q in range(mu_i.shape[1]):  # Q is small (latent dim)
+        d = mu_i[:, None, None, q] - zbar[None, :, :, q]
+        expo = expo - d * d / denom[:, None, None, q]
+    return torch.exp(lognorm[:, None, None] + expo).sum(0)
+
+
 def _psi2_rbf_chunked(mu, S, Z, variance, lengthscale, *,
                       chunk: int = 256) -> torch.Tensor:
     """Psi2 accumulated over N in chunks: O(chunk * M^2) live memory — the
     paper's GPU kernel structure (Table 1) as a plain loop: the (M, M)
-    accumulator stays resident while datapoints stream through."""
-    N, Q = mu.shape
+    accumulator stays resident while datapoints stream through. Each chunk
+    is checkpointed (the reference's `jax.checkpoint`), so a backward pass
+    keeps only the chunk's inputs and recomputes its (chunk, M, M)
+    intermediates: O(chunk * M^2 + N * Q) saved, not O(N * M^2)."""
+    N = mu.shape[0]
     M = Z.shape[0]
     l2 = lengthscale**2
     zdiff = Z[:, None, :] - Z[None, :, :]
@@ -109,14 +134,8 @@ def _psi2_rbf_chunked(mu, S, Z, variance, lengthscale, *,
     zbar = 0.5 * (Z[:, None, :] + Z[None, :, :])
     acc = mu.new_zeros(M, M)
     for i in range(0, N, chunk):
-        mu_i, S_i = mu[i:i + chunk], S[i:i + chunk]
-        denom = l2[None, :] + 2.0 * S_i
-        lognorm = -0.5 * torch.log1p(2.0 * S_i / l2[None, :]).sum(-1)
-        expo = mu_i.new_zeros(mu_i.shape[0], M, M)
-        for q in range(Q):  # Q is small (latent dim)
-            d = mu_i[:, None, None, q] - zbar[None, :, :, q]
-            expo = expo - d * d / denom[:, None, None, q]
-        acc = acc + torch.exp(lognorm[:, None, None] + expo).sum(0)
+        acc = acc + checkpointed(_psi2_chunk_sum, mu[i:i + chunk],
+                                 S[i:i + chunk], zbar, l2)
     return variance**2 * torch.exp(zterm) * acc
 
 

@@ -54,6 +54,11 @@ def available() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def default_rbf(kernel: "Kernel | None", input_dim: int) -> "Kernel":
+    """The shared defaulting rule: no kernel given -> the paper's RBF."""
+    return kernel if kernel is not None else RBF(input_dim)
+
+
 class Kernel:
     """The protocol every kernel implements (see the module docstring). The
     generic K_fu-based exact statistics that the kernels without a fused

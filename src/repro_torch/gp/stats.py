@@ -9,7 +9,9 @@ supplies the math, and `backend` routes the hot path through the fused op
 `chunk=` streams the N datapoints in chunks of that size and combines the
 per-chunk `SuffStats` through the monoid: a Python loop over the full
 chunks, then one explicit tail chunk (no padding), so peak live memory is
-O(chunk * M + M^2) regardless of N.
+O(chunk * M + M^2) regardless of N. Each chunk is checkpointed, so a
+backward pass through the loop also stays at O(chunk * M + M^2) beyond
+the per-point inputs.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.core.psi_stats import SuffStats
+from repro_torch.core.psi_stats import SuffStats, checkpointed
 from repro_torch.gp.kernels import Kernel, Params
 
 
@@ -56,8 +58,9 @@ def _dispatch(kernel: Kernel, params: Params, batch: Batch, backend: str,
 def streaming_suff_stats(kernel: Kernel, params: Params, batch: Batch, *,
                          backend: str = "jnp", chunk: Union[int, str] = 4096,
                          bwd_backend: str = "auto") -> SuffStats:
-    """`suff_stats` as a loop over N in chunks: O(chunk * M + M^2) live.
-    A non-dividing N ends in an explicit tail chunk."""
+    """`suff_stats` as a loop over N in chunks: O(chunk * M + M^2) live,
+    each chunk checkpointed. A non-dividing N ends in an explicit tail
+    chunk."""
     if not isinstance(batch, (ExactBatch, ExpectedBatch)):
         raise TypeError(f"expected ExactBatch or ExpectedBatch, got {type(batch).__name__}")
     if isinstance(chunk, str):
@@ -72,10 +75,13 @@ def streaming_suff_stats(kernel: Kernel, params: Params, batch: Batch, *,
     N = per_point[0].shape[0]
     rebuild = type(batch)
 
+    def chunk_stats(Z, *chunk_arrays) -> SuffStats:
+        return _dispatch(kernel, params, rebuild(*chunk_arrays, Z), backend,
+                         bwd_backend)
+
     def one(lo: int, hi: int) -> SuffStats:
-        return _dispatch(kernel, params,
-                         rebuild(*(a[lo:hi] for a in per_point), batch.Z),
-                         backend, bwd_backend)
+        return checkpointed(chunk_stats, batch.Z,
+                            *(a[lo:hi] for a in per_point))
 
     n_full, rem = divmod(N, chunk)
     stats: Optional[SuffStats] = None

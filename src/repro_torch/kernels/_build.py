@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # one entry per kernel library: name -> its single .cu source
 SOURCES: Dict[str, Path] = {
     "suffstats_fwd": CSRC / "suffstats_fwd.cu",
+    "suffstats_bwd": CSRC / "suffstats_bwd.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -14,16 +14,16 @@ backend="fused" on the card, the CUDA statistics kernel.
 `update` only adds PSD mass and needs no guard. `downdate` subtracts, so
 floating cancellation can leave the downdated Psi2 indefinite: it refolds
 behind a condition-number guard with escalating jitter before giving up.
-`refit` (Adam on log_beta) comes with the training slice.
+`refit` re-optimizes log_beta by Adam against the cached statistics.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import svgp
+from repro_torch.core import inference, svgp
 from repro_torch.core.psi_stats import SuffStats
 from repro_torch.gp.kernels import Kernel
 from repro_torch.gp.stats import Batch, ExactBatch, suff_stats
@@ -109,8 +109,31 @@ def downdate(kernel: Kernel, state: PosteriorState, X_old: torch.Tensor,
                   jitter=jitter)
 
 
-def refit(kernel: Kernel, state: PosteriorState, **kwargs):
-    """Noise touch-up by Adam on log_beta: needs the port of
-    `repro.optim.adam`, which comes with the training slice."""
-    raise NotImplementedError(
-        "refit needs the Adam port, which comes with the training slice")
+def refit(kernel: Kernel, state: PosteriorState, *, steps: int = 50,
+          lr: float = 5e-2,
+          jitter: float = svgp.DEFAULT_JITTER) -> Tuple[PosteriorState, list]:
+    """Warm-started noise touch-up from the cached statistics alone.
+
+    The collapsed bound is an exact function of (stats, beta): the
+    statistics depend on (theta, Z) but not on beta, so log_beta is the one
+    hyperparameter that can be re-optimized without the datapoints. Runs
+    `steps` Adam steps on the bound, warm-started at the served value, and
+    refolds. Returns (new_state, loss_history); the history leads with the
+    loss at the served value."""
+    with torch.no_grad():
+        Kuu = kernel.K(state.kern, state.Z)
+    D = state.D
+    stats = state.stats
+
+    def loss(params: dict) -> torch.Tensor:
+        terms = svgp.collapsed_bound(Kuu, stats, torch.exp(params["log_beta"]),
+                                     D, jitter=jitter)
+        return -terms.bound / stats.n
+
+    with torch.no_grad():
+        start = float(loss({"log_beta": state.log_beta}))
+    params, history = inference.fit_adam(loss, {"log_beta": state.log_beta},
+                                         (), steps=steps, lr=lr)
+    new = {"kern": state.kern, "Z": state.Z, "log_beta": params["log_beta"]}
+    with torch.no_grad():
+        return build_state(kernel, new, stats, jitter=jitter), [start, *history]

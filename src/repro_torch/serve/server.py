@@ -18,9 +18,12 @@ Counterpart of `repro.serve.server`, on one device (the CUDA device unless
 * **Online learning.** `update()` / `downdate()` swap a model's state
   atomically under its lock, so readers see the old or the new posterior.
 
-Not ported yet: persistence (`store=`, `save_all`, `load`), the byte
-budget (`budget_bytes=`), registering a fitted facade, and `refit` — each
-raises `NotImplementedError` naming the slice it comes with.
+* **Refit.** `refit()` re-optimizes a model's noise precision against its
+  cached statistics and swaps the refolded state in the same way.
+
+Not ported yet: persistence (`store=`, `save_all`, `load`) and the byte
+budget (`budget_bytes=`) — each raises `NotImplementedError` naming the
+slice it comes with.
 """
 from __future__ import annotations
 
@@ -126,14 +129,16 @@ class GPServer:
 
     def register(self, name: str, model=None, *, kernel: Kernel | None = None,
                  state: PosteriorState | None = None) -> None:
-        """Register an explicit (kernel, state) pair under `name`; the
-        state's tensors must live on the server's device."""
+        """Register a fitted model under `name`: either a facade exposing
+        `export_state()` (`SparseGPRegression`, `BayesianGPLVM`) or an
+        explicit (kernel, state) pair. The state's tensors must live on the
+        server's device."""
         if model is not None:
-            raise NotImplementedError(
-                "registering a fitted model facade needs the facades, which "
-                "come with the training slice; pass kernel= and state=")
+            if kernel is not None or state is not None:
+                raise ValueError("pass either a fitted model or kernel=+state=, not both")
+            kernel, state = model.kernel, model.export_state()
         if kernel is None or state is None:
-            raise ValueError("register needs both kernel= and state=")
+            raise ValueError("register needs a fitted model or both kernel= and state=")
         if not isinstance(state, PosteriorState):
             raise TypeError(f"state must be a PosteriorState, got {type(state).__name__}")
         if state.Z.device != self.device:
@@ -364,9 +369,15 @@ class GPServer:
                 entry.kernel, state, self._as_data(X_old, state),
                 self._as_data(Y_old, state), backend=backend, chunk=chunk)
 
-    def refit(self, name: str, **kwargs) -> list:
-        raise NotImplementedError(
-            "refit needs the Adam port, which comes with the training slice")
+    def refit(self, name: str, *, steps: int = 50, lr: float = 5e-2) -> list:
+        """Noise-precision touch-up from the cached statistics (see
+        `repro_torch.serve.online.refit`); swaps the refolded state in and
+        returns the loss history."""
+        entry = self._entry(name)
+        with entry.lock:
+            entry.state, history = online.refit(entry.kernel, entry.state,
+                                                steps=steps, lr=lr)
+        return history
 
     def save_all(self):
         raise NotImplementedError(

@@ -8,8 +8,9 @@ on a machine that has only PyTorch:
 need not have.)
 
 Elsewhere every test skips. Float64 kernel within 1e-10 and float32 within
-1e-4 of the float64 plain version, relative to max|plain| (float32 sums
-~1e4 terms per thread in another order).
+1e-4 of the float64 plain version, relative to max|plain| per output
+(float32 sums ~1e4 terms per thread in another order). Both kernels are
+held to be bitwise reproducible.
 """
 import numpy as np
 import pytest
@@ -81,3 +82,57 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         ss.suffstats_cuda(mu, S[:-1], Y, Z, v, l)
     with pytest.raises(ValueError, match="float64 on"):
         ss.suffstats_cuda(mu, S, Y, Z.cpu(), v, l)
+
+
+def _cotangents(M, D, seed=1):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(a) for a in (rng.normal(size=(M, M)),
+                                         rng.normal(size=(M, D)))]
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32), ids=str)
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_suffstats_bwd_kernel_matches_plain(card, case, dtype):
+    arrs = _inputs(*case) + _cotangents(case[1], case[3])
+    want = ss.suffstats_vjp_plain(*arrs)
+    dev = [a.to(card, dtype) for a in arrs]
+    before = ss.BWD_LAUNCHES
+    got = ss.suffstats_bwd_cuda(*dev)
+    again = ss.suffstats_bwd_cuda(*dev)
+    torch.cuda.synchronize()
+    assert ss.BWD_LAUNCHES == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.equal(g, a)  # bitwise reproducible
+        assert _rel(g, w) <= TOL[dtype]
+
+
+def test_ops_backward_runs_the_kernel_with_mixed_dtypes(card):
+    """The GP-LVM facade's mix: float64 mu, Y, Z; float32 S, variance and
+    lengthscale. The op computes in mu's dtype, backward through the
+    kernel, and hands each cotangent back in its own input's dtype."""
+    mu, S, Y, Z, v, l = _inputs(300, 33, 2, 3, True)
+    g2, gY = _cotangents(33, 3)
+    want = ss.suffstats_vjp_plain(mu, S.float().double(), Y, Z,
+                                  v.float().double(), l.float().double(), g2, gY)
+    leaves = [a.to(card).requires_grad_(True) for a in
+              (mu, S.float(), Y, Z, v.float(), l.float())]
+    before = (ss.LAUNCHES, ss.BWD_LAUNCHES)
+    psi2, psiY = ops.suffstats(*leaves)
+    grads = torch.autograd.grad((psi2 * g2.to(card)).sum()
+                                + (psiY * gY.to(card)).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (ss.LAUNCHES, ss.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for g, leaf, w in zip(grads, leaves, want):
+        assert g.dtype == leaf.dtype
+        assert _rel(g, w) <= TOL[leaf.dtype]
+
+
+def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(card):
+    arrs = [a.to(card) for a in _inputs(37, 5, 1, 3, True) + _cotangents(5, 3)]
+    with pytest.raises(ValueError, match="shape"):
+        ss.suffstats_bwd_cuda(*arrs[:6], arrs[6][:, :4], arrs[7])
+    with pytest.raises(ValueError, match="float64 on"):
+        ss.suffstats_bwd_cuda(*arrs[:7], arrs[7].float())
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.suffstats_bwd_cuda(*(a.cpu() for a in arrs))

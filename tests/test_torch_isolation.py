@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15  # every module of the slice was imported
+    assert int(count) >= 22  # every module of the two slices was imported
     assert leaked == "[]", leaked
 
 
@@ -40,7 +40,7 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device: the default is legitimate")
     from repro_torch import convert
-    from repro_torch.gp import get
+    from repro_torch.gp import BayesianGPLVM, SparseGPRegression, get
     from repro_torch.serve import GPServer
 
     params = {"kern": {"log_variance": 0.0, "log_lengthscale": np.zeros(1)},
@@ -51,6 +51,11 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
         convert.params_from_numpy(params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get("rbf")(1).init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SparseGPRegression()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BayesianGPLVM(backend="fused")
     # the same calls run where the caller asks for the CPU
     GPServer(device="cpu").close()
     assert convert.params_from_numpy(params, device="cpu")["Z"].device.type == "cpu"
+    assert BayesianGPLVM(device="cpu").device.type == "cpu"

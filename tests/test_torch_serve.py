@@ -398,13 +398,11 @@ def test_unported_server_features_raise(served):
     with pytest.raises(NotImplementedError, match="later slice"):
         GPServer(budget_bytes=1 << 20, device="cpu")
     srv = GPServer(device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        srv.register("m", object())
+    # registering a facade and refit are ported; a facade together with
+    # an explicit pair is ambiguous and refused
+    with pytest.raises(ValueError, match="not both"):
+        srv.register("m", object(), kernel=kernel, state=st)
     srv.register("m", kernel=kernel, state=st)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        srv.refit("m")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        online.refit(kernel, st)
     with pytest.raises(NotImplementedError, match="later slice"):
         srv.save_all()
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -2,20 +2,24 @@
 reference: the plain version vs the reference's Pallas kernel (interpret
 mode, as the reference's own tests run it) and its streaming jnp twin,
 the torch oracles vs the JAX oracles, the op's device dispatch and its
-forward-only contract. Inputs come from numpy seeds; everything is
-float64 and held to 1e-10 relative to max|reference|.
+differentiable contract. Inputs come from numpy seeds; everything is
+float64 and held to 1e-10 relative to max|reference| (a float32 cotangent
+of a mixed-dtype call to 1e-6: it is the float64 value rounded).
 
 The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py,
 `-m cuda`); here its wrapper is checked to refuse CPU tensors rather than
 fall back.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro.kernels.suffstats import suffstats_fused_jnp, suffstats_pallas
+from repro.kernels import ops as jops
+from repro.kernels.suffstats import (suffstats_fused_jnp, suffstats_pallas,
+                                     suffstats_vjp_jnp)
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import suffstats as tss
@@ -107,12 +111,47 @@ def test_ops_suffstats_runs_the_plain_version_on_cpu():
     assert tss.LAUNCHES == before  # the kernel was not involved
 
 
-def test_ops_suffstats_is_forward_only():
-    mu, S, Y, Z, v, l = _torch(_inputs(37, 5, 1, True))
-    mu.requires_grad_(True)
-    psi2, psiY = ops.suffstats(mu, S, Y, Z, v, l)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        (psi2.sum() + psiY.sum()).backward()
+def _cotangents(M, D=3, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(M, M)), rng.normal(size=(M, D))
+
+
+def test_ops_suffstats_backward_matches_jax_vjp():
+    """The op's backward on the CPU (the plain reverse pass) against the
+    reference's streaming reverse pass."""
+    arrs = _inputs(37, 13, 3, True)
+    g2, gY = _cotangents(13)
+    want = suffstats_vjp_jnp(*map(jnp.asarray, (*arrs, g2, gY)))
+    leaves = [a.requires_grad_(True) for a in _torch(arrs)]
+    psi2, psiY = ops.suffstats(*leaves)
+    ((psi2 * torch.as_tensor(g2)).sum() + (psiY * torch.as_tensor(gY)).sum()).backward()
+    for leaf, w in zip(leaves, want):
+        assert _rel(leaf.grad, w) <= RTOL
+
+
+def test_ops_suffstats_takes_mixed_dtypes():
+    """The GP-LVM facade's mix (float64 mu, Y, Z; float32 S, variance,
+    lengthscale) goes through: the op computes in mu's dtype, like the
+    reference, and returns each cotangent in its own input's dtype."""
+    mu, S, Y, Z, v, l = _inputs(37, 13, 1, True)
+    mixed = (mu, S.astype(np.float32), Y, Z, np.float32(v), l.astype(np.float32))
+    g2, gY = _cotangents(13)
+
+    def scalar(*x):
+        psi2, psiY = jops.suffstats(*x)
+        return jnp.sum(psi2 * g2) + jnp.sum(psiY * gY)
+
+    want_out = suffstats_pallas(*map(jnp.asarray, mixed), interpret=True)
+    want = jax.grad(scalar, argnums=tuple(range(6)))(*map(jnp.asarray, mixed))
+    leaves = [torch.as_tensor(a).requires_grad_(True) for a in mixed]
+    out = ops.suffstats(*leaves)
+    for o, w in zip(out, want_out):
+        assert o.dtype == torch.float64 and _rel(o.detach(), w) <= RTOL
+    grads = torch.autograd.grad((out[0] * torch.as_tensor(g2)).sum()
+                                + (out[1] * torch.as_tensor(gY)).sum(), leaves)
+    for g, leaf, w in zip(grads, leaves, want):
+        assert g.dtype == leaf.dtype == torch.from_numpy(np.array(w)).dtype
+        assert _rel(g.double(), w) <= (RTOL if g.dtype == torch.float64 else 1e-6)
 
 
 def test_ops_suffstats_validates_bwd_backend():
