@@ -9,9 +9,10 @@ supplies the math, and `backend` routes the hot path through the fused op
 `chunk=` streams the N datapoints in chunks of that size and combines the
 per-chunk `SuffStats` through the monoid: a Python loop over the full
 chunks, then one explicit tail chunk (no padding), so peak live memory is
-O(chunk * M + M^2) regardless of N. Each chunk is checkpointed, so a
-backward pass through the loop also stays at O(chunk * M + M^2) beyond
-the per-point inputs.
+O(chunk * M + M^2) regardless of N. Each chunk of the plain backend is
+checkpointed, so a backward pass through the loop also stays at
+O(chunk * M + M^2) beyond the per-point inputs; the fused op saves only
+its inputs already and is not.
 """
 from __future__ import annotations
 
@@ -59,8 +60,8 @@ def streaming_suff_stats(kernel: Kernel, params: Params, batch: Batch, *,
                          backend: str = "jnp", chunk: Union[int, str] = 4096,
                          bwd_backend: str = "auto") -> SuffStats:
     """`suff_stats` as a loop over N in chunks: O(chunk * M + M^2) live,
-    each chunk checkpointed. A non-dividing N ends in an explicit tail
-    chunk."""
+    each plain-backend chunk checkpointed. A non-dividing N ends in an
+    explicit tail chunk."""
     if not isinstance(batch, (ExactBatch, ExpectedBatch)):
         raise TypeError(f"expected ExactBatch or ExpectedBatch, got {type(batch).__name__}")
     if isinstance(chunk, str):
@@ -80,8 +81,12 @@ def streaming_suff_stats(kernel: Kernel, params: Params, batch: Batch, *,
                          bwd_backend)
 
     def one(lo: int, hi: int) -> SuffStats:
-        return checkpointed(chunk_stats, batch.Z,
-                            *(a[lo:hi] for a in per_point))
+        args = (batch.Z, *(a[lo:hi] for a in per_point))
+        if backend == "fused":
+            # the fused op saves only its O(chunk * (Q + D)) inputs: a
+            # checkpoint would save nothing and run its forward twice
+            return chunk_stats(*args)
+        return checkpointed(chunk_stats, *args)
 
     n_full, rem = divmod(N, chunk)
     stats: Optional[SuffStats] = None

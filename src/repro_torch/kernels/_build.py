@@ -3,9 +3,10 @@
 Each source under `csrc/` is compiled by `nvcc` into a shared library with
 a plain C interface and loaded with `ctypes` (no PyTorch headers, so a
 build takes seconds rather than minutes). The build runs at first use, into
-`build/` at the root of the checkout, and is cached by the source's content
-hash: a library whose name carries the current hash is reused, anything
-else is rebuilt. Nothing here runs when the module is imported.
+`build/` at the root of the checkout, and is cached by the content hash of
+the source and the shared headers (`csrc/*.cuh`): a library whose name
+carries the current hash is reused, anything else is rebuilt. Nothing here
+runs when the module is imported.
 
 A failed build raises; there is no fallback.
 """
@@ -54,8 +55,11 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, keyed by its source and every shared header."""
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> Tuple[subprocess.Popen, Path, Path, float]:

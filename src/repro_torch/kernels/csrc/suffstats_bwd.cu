@@ -22,18 +22,21 @@
 //     dmu = -b s1d - 2 r sd
 //     dS  = -b s1 / 2 + b^2 s1v / 2 - r t + 2 r^2 sv
 //     dY_n = sum_m K_nm gyv_m
-//     and the per-point parts of dl (eq. (14), (20)) and dv_raw = s1 + 2 t
-//   pair pass, per (a, b) (the global psi2 sums of eq. (18), (20)):
+//     dl (eq. (14), (20), its zterm part from tz = sum Gw E (z_a - z_b)^2)
+//     and dv_raw = s1 + 2 t, summed over the points
+//   pair pass, per (a, b) (the global psi2 sums of eq. (18)):
 //     P_ab = sum_n E_nab,  A_abq = sum_n E_nab r_nq (mu_nq - zbar_abq)
 //   dZ pass, per m (eq. (12)):
 //     dz1_mq = sum_n W1_nm b_nq (mu_nq - z_mq)
 //
 // and the caller's O(M^2 Q) epilogue turns P and A into the psi2 part of dZ
-// and the zterm part of dl, and divides dv_raw by v (eq. (13), (19)).
+// and divides dv_raw by v (eq. (13), (19)).
 //
-// What bounds it on this card: N M (M + 1) / 2 + N M exponentials and about
-// (10 Q + 8) floating-point operations per (point, pair) against O(N (Q + D))
-// bytes, so the exp units and FP32 (or FP64) issue bound it, never memory.
+// What bounds it on this card: the least work is the forward's
+// N M (M + 1) / 2 + N M exponentials, each once, and about 11 Q + 3
+// floating-point operations per (point, pair) (chip_smoke.py: bwd_bound_ms)
+// against O(N (Q + D)) bytes, so the exp units (float) or FP64 issue bound
+// it, never memory. This design evaluates every exponential twice.
 //
 // What the design does about it:
 //   * The exponent is the direct (mu - zbar)^2 r form of the forward kernel
@@ -52,52 +55,31 @@
 //     out like the forward's psi2 (upper-triangular 32 x 32 tiles x
 //     N-splits, staged points, register sums). The exponentials are thus
 //     evaluated twice; a later version may share them.
+//   * The loss's g2 can be large and cancel across pairs (inducing points
+//     that crowd, as the facades' init draws them), and a float64 reverse
+//     pass is then only as good as its summation (chip_smoke.py checks
+//     both reverse passes against an extended-precision one). So sums run in
+//     two levels (a point's pairs row by row; the pair pass's points run by
+//     run, totals in double), and dl's zterm part is summed point by point
+//     rather than contracted from P, where all of N's rounding meets the
+//     cancellation at once.
 //   * The TPU kernel's (TN, TM, TM) workspace is never formed; nothing larger
 //     than a block's staging run lives in shared memory, whatever M is.
 //   * Ragged N, M and D are masked at the bounds; nothing is padded.
 //   * float and double instances compute in the input dtype; Q = 1..4 is a
 //     compile-time constant (registers), larger Q (<= 16) runs a run-time-Q
 //     instance.
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxQ = 16;
-// pair pass: kTile x kTile pairs per block, kRows per thread (as the forward)
-constexpr int kTile = 32;
-constexpr int kRowStep = kThreads / kTile;
-constexpr int kRows = kTile / kRowStep;
-constexpr int kStage = 128;
 // dZ pass: kZTileM inducing points x kZLanes point lanes per block
 constexpr int kZTileM = 32;
 constexpr int kZLanes = kThreads / kZTileM;
 constexpr int kZStage = 64;
 // point pass: dY columns accumulated per sweep over m
 constexpr int kDChunk = 8;
-
-__device__ __forceinline__ float exp_t(float x) { return expf(x); }
-__device__ __forceinline__ double exp_t(double x) { return exp(x); }
-__device__ __forceinline__ float log1p_t(float x) { return log1pf(x); }
-__device__ __forceinline__ double log1p_t(double x) { return log1p(x); }
-
-__device__ __forceinline__ void split_range(int N, int P, int p, int* begin,
-                                            int* end) {
-  *begin = static_cast<int>(static_cast<long long>(N) * p / P);
-  *end = static_cast<int>(static_cast<long long>(N) * (p + 1) / P);
-}
-
-__device__ __forceinline__ void tri_tile(int t, int T, int* ti, int* tj) {
-  int i = 0;
-  int len = T;
-  while (t >= len) {
-    t -= len;
-    ++i;
-    --len;
-  }
-  *ti = i;
-  *tj = i + t;
-}
 
 // ---------------------------------------------------------------------------
 // point pass: one thread per datapoint
@@ -188,10 +170,17 @@ point_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   }
 
   // ---------------- psi2 branch (eq. (9), (15)-(17)) ----------------
-  T t = T(0), sd[QA], sv[QA];
+  // two-level sums: each row a's pairs, then the rows. tz is the zterm
+  // part of dl (eq. (20)), sum T (z_a - z_b)^2: summed here, point by point,
+  // and not from the pair pass's P, because g2 can be large and cancel
+  // across pairs, and a point's rounding then stays that point's
+  T t = T(0), sd[QA], sv[QA], tz[QA];
 #pragma unroll
-  for (int q = 0; q < QA; ++q) sd[q] = sv[q] = T(0);
+  for (int q = 0; q < QA; ++q) sd[q] = sv[q] = tz[q] = T(0);
   for (int a = 0; a < M; ++a) {
+    T ta = T(0), sda[QA], sva[QA], tza[QA];
+#pragma unroll
+    for (int q = 0; q < QA; ++q) sda[q] = sva[q] = tza[q] = T(0);
     T za[QA];
 #pragma unroll
     for (int q = 0; q < QA; ++q)
@@ -199,25 +188,34 @@ point_kernel(const T* __restrict__ mu, const T* __restrict__ S,
     const T* grow = Gw + static_cast<size_t>(a) * M;
     for (int bb = a; bb < M; ++bb) {
       T e = lg2;
-      T dq[QA];
+      T dq[QA], zd[QA];
 #pragma unroll
       for (int q = 0; q < QA; ++q) {
-        dq[q] = T(0);
+        dq[q] = zd[q] = T(0);
         if (q < Qn) {
-          const T zbar = T(0.5) * (za[q] + __ldg(Z + static_cast<size_t>(bb) * Qn + q));
-          dq[q] = m_[q] - zbar;
+          const T zb = __ldg(Z + static_cast<size_t>(bb) * Qn + q);
+          dq[q] = m_[q] - T(0.5) * (za[q] + zb);
+          zd[q] = za[q] - zb;
           e -= dq[q] * dq[q] * r[q];
         }
       }
       const T ge = __ldg(grow + bb) * exp_t(e);
-      t += ge;
+      ta += ge;
 #pragma unroll
       for (int q = 0; q < QA; ++q) {
         if (q < Qn) {
-          sd[q] += ge * dq[q];
-          sv[q] += ge * dq[q] * dq[q];
+          sda[q] += ge * dq[q];
+          sva[q] += ge * dq[q] * dq[q];
+          tza[q] += ge * zd[q] * zd[q];
         }
       }
+    }
+    t += ta;
+#pragma unroll
+    for (int q = 0; q < QA; ++q) {
+      sd[q] += sda[q];
+      sv[q] += sva[q];
+      tz[q] += tza[q];
     }
   }
 
@@ -234,8 +232,8 @@ point_kernel(const T* __restrict__ mu, const T* __restrict__ S,
                           - rq * t + T(2) * rq * rq * sv[q];  // eq. (11) + (17)
       }
       dl_pt[q] = w * ((s_[q] * bq / lq) * s1 + lq * bq * bq * s1v[q]
-                      + (T(2) / lq) * s_[q] * rq * t
-                      + T(2) * lq * rq * rq * sv[q]);  // eq. (14) + (20)
+                      + (T(2) / lq) * s_[q] * rq * t + T(2) * lq * rq * rq * sv[q]
+                      + T(0.5) * tz[q] / (lq * lq * lq));  // eq. (14) + (20)
     }
   }
   const T dv_pt = w * (s1 + T(2) * t);  // eq. (13) + (19), times v
@@ -271,12 +269,7 @@ pair_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   const int Qn = QC > 0 ? QC : Q;
   const int qsel = blockIdx.z;  // the run-time-Q instance's q
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_mu = reinterpret_cast<T*>(smem_raw);  // [kStage][Qn]
-  T* s_r = s_mu + kStage * Qn;               // [kStage][Qn]
-  T* s_lg = s_r + kStage * Qn;               // [kStage]
-  T* s_za = s_lg + kStage;                   // [kTile][Qn]
-  T* s_zb = s_za + kTile * Qn;               // [kTile][Qn]
-  T* s_l2 = s_zb + kTile * Qn;               // [Qn]
+  const Psi2Smem<T> sm = psi2_smem<T>(smem_raw, Qn);
 
   int ti, tj;
   tri_tile(blockIdx.x, (M + kTile - 1) / kTile, &ti, &tj);
@@ -288,56 +281,43 @@ pair_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   const int row0 = tid / kTile;
   const int ma = ti * kTile;
   const int mb = tj * kTile;
-
-  for (int i = tid; i < kTile * Qn; i += kThreads) {
-    const int rr = i / Qn;
-    const int q = i % Qn;
-    s_za[i] = ma + rr < M ? Z[static_cast<size_t>(ma + rr) * Qn + q] : T(0);
-    s_zb[i] = mb + rr < M ? Z[static_cast<size_t>(mb + rr) * Qn + q] : T(0);
-  }
-  if (tid < Qn) s_l2[tid] = l2[tid];
-  __syncthreads();
+  load_psi2_tile(sm, Z, l2, ma, mb, M, Qn);
 
   const int krows = min(kRows, max(0, (M - ma - row0 + kRowStep - 1) / kRowStep));
-  T accP[kRows], accA[kRows][QA];
+  // two-level sums, as the forward's: each staged run in T, the total in double
+  double accP[kRows], accA[kRows][QA];
+  T runP[kRows], runA[kRows][QA];
   T zb[kRows][QC > 0 ? QC : 1];
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
-    accP[k] = T(0);
+    accP[k] = 0.0;
 #pragma unroll
-    for (int q = 0; q < QA; ++q) accA[k][q] = T(0);
+    for (int q = 0; q < QA; ++q) accA[k][q] = 0.0;
     if constexpr (QC > 0) {
 #pragma unroll
       for (int q = 0; q < QC; ++q)
-        zb[k][q] = T(0.5) * (s_za[(row0 + k * kRowStep) * QC + q] + s_zb[col * QC + q]);
+        zb[k][q] = T(0.5) * (sm.za[(row0 + k * kRowStep) * QC + q] + sm.zb[col * QC + q]);
     }
   }
 
   for (int base = n0; base < n1; base += kStage) {
     const int cnt = min(kStage, n1 - base);
-    __syncthreads();  // the previous run is consumed
-    if (tid < cnt) {
-      const size_t n = static_cast<size_t>(base + tid);
-      T lg = T(0);
-      for (int q = 0; q < Qn; ++q) {
-        const T s = S[n * Qn + q];
-        const T l2q = s_l2[q];
-        s_mu[tid * Qn + q] = mu[n * Qn + q];
-        s_r[tid * Qn + q] = T(1) / (l2q + T(2) * s);
-        lg += log1p_t(T(2) * s / l2q);
-      }
-      s_lg[tid] = T(-0.5) * lg;
+    stage_psi2_points(sm, mu, S, base, cnt, Qn);
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      runP[k] = T(0);
+#pragma unroll
+      for (int q = 0; q < QA; ++q) runA[k][q] = T(0);
     }
-    __syncthreads();
     if constexpr (QC > 0) {
       for (int i = 0; i < cnt; ++i) {
         T mu_i[QC], r_i[QC];
 #pragma unroll
         for (int q = 0; q < QC; ++q) {
-          mu_i[q] = s_mu[i * QC + q];
-          r_i[q] = s_r[i * QC + q];
+          mu_i[q] = sm.mu[i * QC + q];
+          r_i[q] = sm.r[i * QC + q];
         }
-        const T lg = s_lg[i];
+        const T lg = sm.lg[i];
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
           if (k < krows) {
@@ -349,15 +329,15 @@ pair_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
               e -= d[q] * d[q] * r_i[q];
             }
             const T ex = exp_t(e);
-            accP[k] += ex;
+            runP[k] += ex;
 #pragma unroll
-            for (int q = 0; q < QC; ++q) accA[k][q] += ex * r_i[q] * d[q];
+            for (int q = 0; q < QC; ++q) runA[k][q] += ex * r_i[q] * d[q];
           }
         }
       }
     } else {
       for (int i = 0; i < cnt; ++i) {
-        const T lg = s_lg[i];
+        const T lg = sm.lg[i];
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
           if (k < krows) {
@@ -365,17 +345,23 @@ pair_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
             T e = lg;
             T dsel = T(0);
             for (int q = 0; q < Qn; ++q) {
-              const T zbar = T(0.5) * (s_za[row * Qn + q] + s_zb[col * Qn + q]);
-              const T d = s_mu[i * Qn + q] - zbar;
-              e -= d * d * s_r[i * Qn + q];
+              const T zbar = T(0.5) * (sm.za[row * Qn + q] + sm.zb[col * Qn + q]);
+              const T d = sm.mu[i * Qn + q] - zbar;
+              e -= d * d * sm.r[i * Qn + q];
               if (q == qsel) dsel = d;
             }
             const T ex = exp_t(e);
-            accP[k] += ex;
-            accA[k][0] += ex * s_r[i * Qn + qsel] * dsel;
+            runP[k] += ex;
+            runA[k][0] += ex * sm.r[i * Qn + qsel] * dsel;
           }
         }
       }
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      accP[k] += static_cast<double>(runP[k]);
+#pragma unroll
+      for (int q = 0; q < QA; ++q) accA[k][q] += static_cast<double>(runA[k][q]);
     }
   }
 
@@ -386,12 +372,12 @@ pair_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
     for (int k = 0; k < kRows; ++k) {
       if (k < krows) {
         const size_t at = static_cast<size_t>(ma + row0 + k * kRowStep) * M + mb + col;
-        if (QC > 0 || qsel == 0) out[at] = accP[k];
+        if (QC > 0 || qsel == 0) out[at] = static_cast<T>(accP[k]);
         if constexpr (QC > 0) {
 #pragma unroll
-          for (int q = 0; q < QC; ++q) out[(1 + q) * slab + at] = accA[k][q];
+          for (int q = 0; q < QC; ++q) out[(1 + q) * slab + at] = static_cast<T>(accA[k][q]);
         } else {
-          out[(1 + qsel) * slab + at] = accA[k][0];
+          out[(1 + qsel) * slab + at] = static_cast<T>(accA[k][0]);
         }
       }
     }
@@ -484,37 +470,6 @@ dz1_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   }
 }
 
-// out[s, a, b] = sum_{p = 0..P-1} part[p, s, a, b], in that order. With
-// sym_tile > 0 only the upper-triangular sym_tile x sym_tile tiles of each
-// slab were written: entries below them read their mirror.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const T* __restrict__ part, T* __restrict__ out, int P,
-                       int slabs, int rows, int cols, int sym_tile) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const size_t per = static_cast<size_t>(rows) * cols;
-  if (idx >= per * slabs) return;
-  const size_t s = idx / per;
-  const int a = static_cast<int>((idx % per) / cols);
-  const int b = static_cast<int>(idx % cols);
-  size_t src = s * per + static_cast<size_t>(a) * cols + b;
-  if (sym_tile > 0 && a / sym_tile > b / sym_tile)
-    src = s * per + static_cast<size_t>(b) * cols + a;
-  T acc = T(0);
-  for (int p = 0; p < P; ++p) acc += part[static_cast<size_t>(p) * per * slabs + src];
-  out[idx] = acc;
-}
-
-template <typename T>
-cudaError_t reduce(const T* part, T* out, int P, int slabs, int rows, int cols,
-                   int sym_tile, cudaStream_t stream) {
-  const size_t total = static_cast<size_t>(slabs) * rows * cols;
-  reduce_partials_kernel<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
-                              kThreads, 0, stream>>>(part, out, P, slabs, rows, cols,
-                                                     sym_tile);
-  return cudaGetLastError();
-}
-
 template <typename T, int QC>
 void launch_point(int blocks, cudaStream_t stream, const T* mu, const T* S,
                   const T* Y, const T* Z, const T* l2, const T* ls, const T* Gw,
@@ -549,7 +504,7 @@ cudaError_t suffstats_bwd(const T* mu, const T* S, const T* Y, const T* Z,
   if (err != cudaSuccess) return err;
 
   const int tiles = (M + kTile - 1) / kTile;
-  const size_t smem2 = sizeof(T) * (2 * kStage * Q + kStage + 2 * kTile * Q + Q);
+  const size_t smem2 = psi2_smem_bytes<T>(Q);
   const dim3 grid2(tiles * (tiles + 1) / 2, P2, Q <= 4 ? 1 : Q);
   switch (Q) {
     case 1: launch_pair<T, 1>(grid2, smem2, stream, mu, S, Z, l2, pair_part, N, M, Q, P2); break;
@@ -568,11 +523,11 @@ cudaError_t suffstats_bwd(const T* mu, const T* S, const T* Y, const T* Z,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = reduce<T>(point_part, point_sum, NB, 1, 1, Q + 1, 0, stream);
+  err = reduce_partials<T>(point_part, point_sum, NB, 1, 1, Q + 1, 0, stream);
   if (err != cudaSuccess) return err;
-  err = reduce<T>(pair_part, pair_sum, P2, Q + 1, M, M, kTile, stream);
+  err = reduce_partials<T>(pair_part, pair_sum, P2, Q + 1, M, M, kTile, stream);
   if (err != cudaSuccess) return err;
-  return reduce<T>(dz_part, dz1, PZ, 1, M, Q, 0, stream);
+  return reduce_partials<T>(dz_part, dz1, PZ, 1, M, Q, 0, stream);
 }
 
 }  // namespace

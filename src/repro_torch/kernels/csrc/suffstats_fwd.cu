@@ -34,50 +34,26 @@
 //     sequential grid; here blocks run concurrently, so each writes a partial
 //     to scratch (P, M, M) and a second kernel sums the P partials in a fixed
 //     order. No atomics: results are bitwise equal from run to run.
+//   * Sums run in two levels: each staged run of points in the input dtype,
+//     the running total over runs (and the reduction over partials) in
+//     double. A float thread's one long float sum over ~2e4 points was off
+//     by ~1e-5 of psi2, enough to leave Kuu + beta psi2 indefinite in float32
+//     where the inducing points crowd (about 2e-7 now, as an exactly
+//     rounded psi2 would be); a conversion and a double add per output per
+//     run cost next to nothing.
 //   * The caller picks P so that about 4 x 132 blocks are in flight.
 //   * psiY runs in its own blocks per (32-row m tile, 8-column d tile,
 //     N-split) with the same fixed-order reduction.
 //   * Ragged N, M and D are masked at the bounds; nothing is padded.
 //   * float and double instances compute in the input dtype.
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-// psi2: kTile x kTile outputs per block, kRows per thread (rows row0 + k * 8)
-constexpr int kTile = 32;
-constexpr int kRowStep = kThreads / kTile;
-constexpr int kRows = kTile / kRowStep;
-constexpr int kStage = 128;  // datapoints staged per step
 // psiY: kYTileM x kYTileD outputs per block, one per thread
 constexpr int kYTileM = 32;
 constexpr int kYTileD = kThreads / kYTileM;
 constexpr int kYStage = 64;
-
-__device__ __forceinline__ float exp_t(float x) { return expf(x); }
-__device__ __forceinline__ double exp_t(double x) { return exp(x); }
-__device__ __forceinline__ float log1p_t(float x) { return log1pf(x); }
-__device__ __forceinline__ double log1p_t(double x) { return log1p(x); }
-
-// [begin, end) of the N axis owned by split p of P (sizes differ by <= 1)
-__device__ __forceinline__ void split_range(int N, int P, int p, int* begin,
-                                            int* end) {
-  *begin = static_cast<int>(static_cast<long long>(N) * p / P);
-  *end = static_cast<int>(static_cast<long long>(N) * (p + 1) / P);
-}
-
-// linear index over the upper triangle of a T x T tile grid -> (ti <= tj)
-__device__ __forceinline__ void tri_tile(int t, int T, int* ti, int* tj) {
-  int i = 0;
-  int len = T;
-  while (t >= len) {
-    t -= len;
-    ++i;
-    --len;
-  }
-  *ti = i;
-  *tj = i + t;
-}
 
 // QC > 0: Q is the compile-time QC (z-bar lives in registers);
 // QC == 0: Q is read at run time (z-bar from shared memory).
@@ -88,12 +64,7 @@ psi2_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
                     T* __restrict__ part, int N, int M, int Q, int P) {
   const int Qn = QC > 0 ? QC : Q;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_mu = reinterpret_cast<T*>(smem_raw);  // [kStage][Qn]
-  T* s_r = s_mu + kStage * Qn;               // [kStage][Qn]
-  T* s_lg = s_r + kStage * Qn;               // [kStage]
-  T* s_za = s_lg + kStage;                   // [kTile][Qn]  rows m
-  T* s_zb = s_za + kTile * Qn;               // [kTile][Qn]  columns m'
-  T* s_l2 = s_zb + kTile * Qn;               // [Qn]
+  const Psi2Smem<T> sm = psi2_smem<T>(smem_raw, Qn);
 
   int ti, tj;
   tri_tile(blockIdx.x, (M + kTile - 1) / kTile, &ti, &tj);
@@ -105,55 +76,37 @@ psi2_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   const int row0 = tid / kTile;  // warp -> rows row0 + k * kRowStep
   const int ma = ti * kTile;
   const int mb = tj * kTile;
-
-  for (int i = tid; i < kTile * Qn; i += kThreads) {
-    const int r = i / Qn;
-    const int q = i % Qn;
-    s_za[i] = ma + r < M ? Z[static_cast<size_t>(ma + r) * Qn + q] : T(0);
-    s_zb[i] = mb + r < M ? Z[static_cast<size_t>(mb + r) * Qn + q] : T(0);
-  }
-  if (tid < Qn) s_l2[tid] = l2[tid];
-  __syncthreads();
+  load_psi2_tile(sm, Z, l2, ma, mb, M, Qn);
 
   // rows of this warp inside M form a prefix k < krows (warp-uniform)
   const int krows = min(kRows, max(0, (M - ma - row0 + kRowStep - 1) / kRowStep));
-  T acc[kRows];
+  double acc[kRows];  // the running total, over every staged run
+  T run[kRows];       // one staged run's sum
   T zb[kRows][QC > 0 ? QC : 1];
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
-    acc[k] = T(0);
+    acc[k] = 0.0;
     if constexpr (QC > 0) {
 #pragma unroll
       for (int q = 0; q < QC; ++q)
-        zb[k][q] = T(0.5) * (s_za[(row0 + k * kRowStep) * QC + q] + s_zb[col * QC + q]);
+        zb[k][q] = T(0.5) * (sm.za[(row0 + k * kRowStep) * QC + q] + sm.zb[col * QC + q]);
     }
   }
 
   for (int base = n0; base < n1; base += kStage) {
     const int cnt = min(kStage, n1 - base);
-    __syncthreads();  // the previous run is consumed
-    if (tid < cnt) {
-      const size_t n = static_cast<size_t>(base + tid);
-      T lg = T(0);
-      for (int q = 0; q < Qn; ++q) {
-        const T s = S[n * Qn + q];
-        const T l2q = s_l2[q];
-        s_mu[tid * Qn + q] = mu[n * Qn + q];
-        s_r[tid * Qn + q] = T(1) / (l2q + T(2) * s);
-        lg += log1p_t(T(2) * s / l2q);
-      }
-      s_lg[tid] = T(-0.5) * lg;
-    }
-    __syncthreads();
+    stage_psi2_points(sm, mu, S, base, cnt, Qn);
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) run[k] = T(0);
     if constexpr (QC > 0) {
       for (int i = 0; i < cnt; ++i) {
         T mu_i[QC], r_i[QC];
 #pragma unroll
         for (int q = 0; q < QC; ++q) {
-          mu_i[q] = s_mu[i * QC + q];
-          r_i[q] = s_r[i * QC + q];
+          mu_i[q] = sm.mu[i * QC + q];
+          r_i[q] = sm.r[i * QC + q];
         }
-        const T lg = s_lg[i];
+        const T lg = sm.lg[i];
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
           if (k < krows) {
@@ -163,28 +116,30 @@ psi2_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
               const T d = mu_i[q] - zb[k][q];
               e -= d * d * r_i[q];
             }
-            acc[k] += exp_t(e);
+            run[k] += exp_t(e);
           }
         }
       }
     } else {
       for (int i = 0; i < cnt; ++i) {
-        const T lg = s_lg[i];
+        const T lg = sm.lg[i];
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
           if (k < krows) {
             const int row = row0 + k * kRowStep;
             T e = lg;
             for (int q = 0; q < Qn; ++q) {
-              const T zbar = T(0.5) * (s_za[row * Qn + q] + s_zb[col * Qn + q]);
-              const T d = s_mu[i * Qn + q] - zbar;
-              e -= d * d * s_r[i * Qn + q];
+              const T zbar = T(0.5) * (sm.za[row * Qn + q] + sm.zb[col * Qn + q]);
+              const T d = sm.mu[i * Qn + q] - zbar;
+              e -= d * d * sm.r[i * Qn + q];
             }
-            acc[k] += exp_t(e);
+            run[k] += exp_t(e);
           }
         }
       }
     }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) acc[k] += static_cast<double>(run[k]);
   }
 
   if (mb + col < M) {
@@ -192,7 +147,7 @@ psi2_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
 #pragma unroll
     for (int k = 0; k < kRows; ++k)
       if (k < krows)
-        out[static_cast<size_t>(ma + row0 + k * kRowStep) * M + mb + col] = acc[k];
+        out[static_cast<size_t>(ma + row0 + k * kRowStep) * M + mb + col] = static_cast<T>(acc[k]);
   }
 }
 
@@ -227,7 +182,7 @@ psiy_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   if (tid < Q) s_l2[tid] = l2[tid];
   __syncthreads();
 
-  T acc = T(0);
+  double acc = 0.0;  // the running total; each staged run is summed in T
   for (int base = n0; base < n1; base += kYStage) {
     const int cnt = min(kYStage, n1 - base);
     __syncthreads();  // the previous run is consumed
@@ -260,31 +215,14 @@ psiy_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
       s_psi[i] = exp_t(e);
     }
     __syncthreads();
-    for (int i = 0; i < cnt; ++i) acc += s_psi[i * kYTileM + mm] * s_y[i * kYTileD + dd];
+    T run = T(0);
+    for (int i = 0; i < cnt; ++i) run += s_psi[i * kYTileM + mm] * s_y[i * kYTileD + dd];
+    acc += static_cast<double>(run);
   }
 
   const int m = m0 + mm;
   const int d = d0 + dd;
-  if (m < M && d < D) part[(static_cast<size_t>(p) * M + m) * D + d] = acc;
-}
-
-// out[a, b] = sum_{p = 0..P-1} part[p, a, b], in that order. With
-// sym_tile > 0 only the upper-triangular sym_tile x sym_tile tiles of each
-// partial were written: entries below them read their mirror.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const T* __restrict__ part, T* __restrict__ out, int P,
-                       int rows, int cols, int sym_tile) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const size_t total = static_cast<size_t>(rows) * cols;
-  if (idx >= total) return;
-  const int a = static_cast<int>(idx / cols);
-  const int b = static_cast<int>(idx % cols);
-  size_t src = idx;
-  if (sym_tile > 0 && a / sym_tile > b / sym_tile) src = static_cast<size_t>(b) * cols + a;
-  T s = T(0);
-  for (int p = 0; p < P; ++p) s += part[static_cast<size_t>(p) * total + src];
-  out[idx] = s;
+  if (m < M && d < D) part[(static_cast<size_t>(p) * M + m) * D + d] = static_cast<T>(acc);
 }
 
 template <typename T, int QC>
@@ -301,7 +239,7 @@ cudaError_t suffstats_fwd(const T* mu, const T* S, const T* Y, const T* Z,
                           cudaStream_t stream) {
   const int tiles = (M + kTile - 1) / kTile;
   const dim3 grid2(tiles * (tiles + 1) / 2, P2);
-  const size_t smem2 = sizeof(T) * (2 * kStage * Q + kStage + 2 * kTile * Q + Q);
+  const size_t smem2 = psi2_smem_bytes<T>(Q);
   switch (Q) {
     case 1: launch_psi2<T, 1>(grid2, smem2, stream, mu, S, Z, l2, part2, N, M, Q, P2); break;
     case 2: launch_psi2<T, 2>(grid2, smem2, stream, mu, S, Z, l2, part2, N, M, Q, P2); break;
@@ -319,15 +257,9 @@ cudaError_t suffstats_fwd(const T* mu, const T* S, const T* Y, const T* Z,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t n2 = static_cast<size_t>(M) * M;
-  reduce_partials_kernel<T><<<static_cast<unsigned>((n2 + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      part2, acc2, P2, M, M, kTile);
-  err = cudaGetLastError();
+  err = reduce_partials<T>(part2, acc2, P2, 1, M, M, kTile, stream);
   if (err != cudaSuccess) return err;
-  const size_t nY = static_cast<size_t>(M) * D;
-  reduce_partials_kernel<T><<<static_cast<unsigned>((nY + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      partY, accY, PY, M, D, 0);
-  return cudaGetLastError();
+  return reduce_partials<T>(partY, accY, PY, 1, M, D, 0, stream);
 }
 
 }  // namespace

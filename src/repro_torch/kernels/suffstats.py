@@ -321,11 +321,10 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY):
     and if the launch fails.
 
     The (m, m')-only prefactor is folded into the psi2 cotangent before the
-    launch (eq. (9)); the kernel returns the per-point cotangents, the
-    per-point parts of dl and dv, and the pair sums P_ab = sum_n E_nab and
+    launch (eq. (9)); the kernel returns the per-point cotangents, dl and
+    v dv summed over the points, and the pair sums P_ab = sum_n E_nab and
     A_abq = sum_n E_nab r_nq (mu_nq - zbar_abq), which the O(M^2 Q)
-    epilogue here turns into the psi2 parts of dZ (eq. (18)) and dl
-    (eq. (20))."""
+    epilogue here turns into the psi2 part of dZ (eq. (18))."""
     global BWD_LAUNCHES
     _check(mu, S, Y, Z, variance, lengthscale, what="suffstats_bwd_cuda",
            g2=g2, gY=gY)
@@ -354,13 +353,11 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY):
         raise RuntimeError(f"suffstats_bwd launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
     BWD_LAUNCHES += 1
-    # epilogue: eq. (18) and the zterm part of eq. (20) from the pair sums
+    # epilogue: eq. (18) from the pair sums
     Gsym = G2p + G2p.T
     P, A = pair_sum[0], pair_sum[1:]
     GP = Gsym * P
     dZ = (dz1 + torch.einsum("km,qkm->kq", Gsym, A)
           - (Z * GP.sum(1)[:, None] - GP @ Z) / (2.0 * l2))
-    zdiff2 = (Z[:, None, :] - Z[None, :, :]) ** 2
-    dl = point_sum[:Q] + torch.einsum("ab,abq->q", G2p * P, zdiff2) / (2.0 * ls**3)
     dv = (point_sum[Q] / variance).reshape(variance.shape)
-    return dmu, dS, dY, dZ, dv, dl
+    return dmu, dS, dY, dZ, dv, point_sum[:Q]

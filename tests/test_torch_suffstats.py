@@ -181,3 +181,25 @@ def test_splits_fill_the_card_and_depend_on_shape_only(shape):
     # no N-split shorter than one staging run (except a lone one)
     assert P2 == 1 or N // P2 >= tss.STAGE
     assert PY == 1 or N // PY >= tss.Y_STAGE
+
+
+def test_build_key_covers_the_source_and_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is rebuilt when its source or a shared header
+    changes, and its name is the same while neither does."""
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    source, header = csrc / "k.cu", csrc / "common.cuh"
+    source.write_text('#include "common.cuh"\n')
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "SOURCES", {"k": source})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build._target("k")
+    assert _build._target("k") == first
+    header.write_text("// v2\n")
+    second = _build._target("k")
+    assert second != first
+    source.write_text('#include "common.cuh"\n// edited\n')
+    assert _build._target("k") not in (first, second)

@@ -17,7 +17,8 @@ from torch.autograd.graph import saved_tensors_hooks
 
 from repro.kernels.suffstats import suffstats_bwd_pallas, suffstats_vjp_jnp
 from repro_torch.core import psi_stats as tps
-from repro_torch.gp import ExactBatch, ExpectedBatch, get, suff_stats
+from repro_torch.gp import (ExactBatch, ExpectedBatch, get, streaming_suff_stats,
+                            suff_stats)
 from repro_torch.kernels import ops
 from repro_torch.kernels import suffstats as tss
 
@@ -198,3 +199,35 @@ def test_streaming_stats_gradients_match_and_save_o_chunk(kind):
     for a, b in zip(grads, want):
         assert _rel(a, b) <= RTOL
     assert saved <= 8 * (4 * chunk * M * M + 16 * N + 64 * M * M)
+
+
+def test_streaming_fused_stats_run_the_op_once_per_chunk(monkeypatch):
+    """The fused op saves only its inputs, so its chunks are not
+    checkpointed: forward and backward run its forward once per chunk, and
+    the gradients equal the one-shot op's."""
+    mu, S, Z, v, l = _lvm_leaves(N=1000)
+    N, chunk = mu.shape[0], 96
+    Y = torch.as_tensor(np.random.default_rng(5).normal(size=(N, 2)))
+    kern = get("rbf")(1)
+    calls = [0]
+    plain = ops.suffstats_fused_plain
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "suffstats_fused_plain", counted)
+
+    def objective(stream):
+        params = {"log_variance": torch.log(v), "log_lengthscale": torch.log(l)}
+        batch = ExpectedBatch(mu, S, Y, Z)
+        st = (streaming_suff_stats(kern, params, batch, backend="fused", chunk=chunk)
+              if stream else suff_stats(kern, params, batch, backend="fused"))
+        return st.psi2.sum() + (st.psiY ** 2).sum()
+
+    leaves = (mu, S, Z, v, l)
+    grads = torch.autograd.grad(objective(True), leaves)
+    assert calls[0] == -(-N // chunk)
+    want = torch.autograd.grad(objective(False), leaves)
+    for a, b in zip(grads, want):
+        assert _rel(a, b) <= RTOL
