@@ -7,9 +7,11 @@ Phases (any failure exits non-zero and prints no result):
 
 1. Device: a CUDA device is required (no CPU fallback); prints
    `nvidia-smi --query-gpu=name,power.limit` for the card.
-2. Build: every kernel library (the forward and the reverse psi-statistics
-   kernels) is compiled from `src/repro_torch/kernels/csrc` (one nvcc per
-   source, all at once) into `build/`.
+2. Build: every kernel library (the fused forward and reverse
+   psi-statistics kernels B1 and B2, and the single-statistic kernels B3
+   psi2, B4 its reverse, B5 psi1, B6 its reverse) is compiled from
+   `src/repro_torch/kernels/csrc` (one nvcc per source, all at once) into
+   `build/`.
 3. Kernels vs plain versions on the card, at the paper's shape
    (N = 1,000,003, M = 100, Q = 1, D = 3) and at N = 100,003, M = 256,
    Q = 4, D = 5, each with S > 0 (GP-LVM) and S = 0 (SGPR): the forward
@@ -17,7 +19,9 @@ Phases (any failure exits non-zero and prints no result):
    `suffstats_vjp_plain` with random output cotangents. Float64 kernels
    within 1e-10 and float32 kernels within 1e-4 of the float64 plain
    version, relative to max|plain| per output; two kernel runs bitwise
-   equal.
+   equal. The same for B3-B6 at both shapes with S > 0 (`psi2_plain`,
+   `psi2_vjp_plain`, `psi1_plain`, `psi1_vjp_plain`, random output
+   cotangents), and for B5 and B6 also at S = 0.
 4. Serving at the paper's §4 scale (N = 1e6, M = 100, Q = 1, D = 3; data
    and parameters from a numpy seed): a GP-LVM state from q(X) and an SGPR
    state from (X, Y), built through `suff_stats(backend="fused")`, served
@@ -41,10 +45,21 @@ Phases (any failure exits non-zero and prints no result):
    from the init they are traced. Each fitted model is then registered
    with a `GPServer`, served at B = 1 and 256 and touched up with `refit`
    (loss non-increasing).
-6. Times, with the card's name and power limit: each kernel and its plain
+6. The GP-LVM through backend="pallas" (this slice's main path): a
+   `BayesianGPLVM(backend="pallas")` fitted from its own init at the
+   paper's shape, 10 Adam steps in float32 and float64. Losses finite and
+   the last below the first; each step launches B5, B3, B6 and B4 once and
+   the fused kernels never; the float32 fit makes at least 80 % of the
+   float64 fit's descent. Each fitted model is registered with a
+   `GPServer`, served at B = 1 and 256 and refitted. In float64, at the
+   same parameters, the pallas loss and gradients against
+   backend="fused": held on the well-conditioned grid (loss within 1e-10,
+   each gradient leaf within 1e-8, every leaf float64), printed from the
+   init.
+7. Times, with the card's name and power limit: each kernel and its plain
    version at the paper's shape (median of CUDA-event timings), the
    kernels' bounds, predict p50 at B = 1 and B = 256, and the median
-   training-step time after the first step for both models and dtypes.
+   training-step time after the first step for every model and dtype.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -71,7 +86,10 @@ from repro_torch.gp import (BayesianGPLVM, ExactBatch, ExpectedBatch,  # noqa: E
                             SparseGPRegression, get, suff_stats)
 from repro_torch.optim import AdamConfig, adam_init, adam_update  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import psi1 as p1  # noqa: E402
+from repro_torch.kernels import psi2 as p2  # noqa: E402
 from repro_torch.kernels import suffstats as ss  # noqa: E402
+from repro_torch.optim.adam import tree_map  # noqa: E402
 from repro_torch.serve import GPServer, build_state  # noqa: E402
 
 SEED = 0
@@ -114,6 +132,10 @@ EXT_FLOOR = 1e-13
 # is a floor on its usefulness, not a roundoff bound.
 F32_DESCENT_SHARE = 0.8
 TIMED_STEPS = 6  # the first is dropped
+# backend="pallas" against backend="fused" at the same float64 parameters on
+# the grid: the same model through other kernels and other summation
+# orders, so the loss to TOL and each gradient leaf to this
+BACKEND_GRAD_TOL = 1e-8
 
 # NVIDIA H100 SXM published peaks (data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -128,6 +150,37 @@ ROUTE = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/suffstats_fwd.
 ROUTE_BWD = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/suffstats_bwd.cu",
              "replaces": "src/repro/kernels/suffstats.py:463", "library_ms": None}
 BWD_OUTPUTS = ("dmu", "dS", "dY", "dZ", "dvariance", "dlengthscale")
+SINGLE_BWD_OUTPUTS = ("dmu", "dS", "dZ", "dvariance", "dlengthscale")
+CSRC = "src/repro_torch/kernels/csrc"
+# the single-statistic kernels (B3-B6): the library, the TPU kernel each
+# replaces, and its launch counter (module, attribute)
+SINGLE_ROUTES = {
+    "psi2_fwd": {"route": "cuda", "source": f"{CSRC}/psi2_fwd.cu",
+                 "replaces": "src/repro/kernels/psi2.py:105", "library_ms": None},
+    "psi2_bwd": {"route": "cuda", "source": f"{CSRC}/psi2_bwd.cu",
+                 "replaces": "src/repro/kernels/suffstats.py:714", "library_ms": None},
+    "psi1_fwd": {"route": "cuda", "source": f"{CSRC}/psi1_fwd.cu",
+                 "replaces": "src/repro/kernels/psi1.py:75", "library_ms": None},
+    "psi1_bwd": {"route": "cuda", "source": f"{CSRC}/psi1_bwd.cu",
+                 "replaces": "src/repro/kernels/suffstats.py:590", "library_ms": None},
+}
+COUNTERS = {"suffstats_fwd": (ss, "LAUNCHES"), "suffstats_bwd": (ss, "BWD_LAUNCHES"),
+            "psi2_fwd": (p2, "LAUNCHES"), "psi2_bwd": (ss, "PSI2_BWD_LAUNCHES"),
+            "psi1_fwd": (p1, "LAUNCHES"), "psi1_bwd": (ss, "PSI1_BWD_LAUNCHES")}
+
+
+def counts() -> dict:
+    """Every kernel's launch counter."""
+    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
+
+
+def set_counts(values: dict) -> None:
+    for name, (module, attr) in COUNTERS.items():
+        setattr(module, attr, values[name])
+
+
+def zero_counts() -> None:
+    set_counts({name: 0 for name in COUNTERS})
 
 
 class SmokeFailure(Exception):
@@ -239,6 +292,54 @@ def phase_bwd_kernels() -> dict:
                     check(torch.equal(g, a), f"bwd {name} {dt}: two runs differ")
                     if (N, M, Q, D) == KERNEL_SHAPES[0]:
                         errs[dt] = max(errs[dt], float((g.double() - w).abs().max()))
+    return errs
+
+
+def random_g(N: int, M: int, seed: int = SEED + 2) -> torch.Tensor:
+    """A float64 (N, M) output cotangent of psi1, drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(N, M, generator=gen, device="cuda", dtype=torch.float64)
+
+
+def _as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def phase_single_kernels() -> dict:
+    """The single-statistic kernels B3-B6, each against its plain version
+    on every shape: S > 0 for all four, S = 0 also for psi1 and its reverse
+    (the next slice's K_fu reverse). Returns the max abs error per (kernel,
+    dtype) at the paper's shape."""
+    errs = {(name, dt): 0.0 for name in SINGLE_ROUTES for dt in TOL}
+    for N, M, Q, D in KERNEL_SHAPES:
+        for pos_S in (True, False):
+            mu, S, _, Z, v, l = kernel_inputs(N, M, Q, D, pos_S)
+            x = (mu, S, Z, v, l)
+            cases = {"psi1_fwd": (p1.psi1_cuda, p1.psi1_plain, x, ("psi1",)),
+                     "psi1_bwd": (ss.psi1_bwd_cuda, ss.psi1_vjp_plain,
+                                  x + (random_g(N, M),), SINGLE_BWD_OUTPUTS)}
+            if pos_S:
+                cases["psi2_fwd"] = (p2.psi2_cuda, p2.psi2_plain, x, ("psi2",))
+                cases["psi2_bwd"] = (ss.psi2_bwd_cuda, ss.psi2_vjp_plain,
+                                     x + (bwd_cotangents(M, D)[0],), SINGLE_BWD_OUTPUTS)
+            for name, (kernel, plain, args, outputs) in cases.items():
+                want = _as_tuple(plain(*args))
+                for dt, tol in TOL.items():
+                    xs = [a.to(dt) for a in args]
+                    got, again = _as_tuple(kernel(*xs)), _as_tuple(kernel(*xs))
+                    torch.cuda.synchronize()
+                    for out, g, a, w in zip(outputs, got, again, want):
+                        r = rel_err(g, w)
+                        log(f"[kernel] {name} N={N} M={M} Q={Q} S{'>' if pos_S else '='}0 "
+                            f"{str(dt)[6:]} {out}: rel err {r:.3e} (tol {tol:g})")
+                        check(g.shape == w.shape and g.dtype == dt, f"{name} {out} shape/dtype")
+                        check(bool(torch.isfinite(g).all()), f"{name} {out} not finite")
+                        check(r <= tol, f"{name} {out} {dt} rel err {r:.3e} > {tol:g}")
+                        check(torch.equal(g, a), f"{name} {out} {dt}: two runs differ")
+                        if (N, M, Q, D) == KERNEL_SHAPES[0]:
+                            errs[name, dt] = max(errs[name, dt],
+                                                 float((g.double() - w).abs().max()))
+                del want
     return errs
 
 
@@ -404,21 +505,23 @@ def phase_serving(data: dict) -> dict:
     result = {}
     runs = {}
     for dtype in (torch.float64, torch.float32):
-        ss.LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         runs[dtype] = serve_run(data, device="cuda", dtype=dtype, backend="fused",
                                 timed=True)
         torch.cuda.synchronize()
         launches = ss.LAUNCHES
+        check(sum(counts().values()) == launches,
+              f"{dtype} serving path launched another kernel than B1: {counts()}")
         log(f"[serve] {str(dtype)[6:]} kernel path: {launches} kernel launches, "
             f"{time.perf_counter() - t0:.1f} s")
         check(launches > 0, f"{dtype} serving path never launched the kernel")
         _log_times(runs[dtype], f"{str(dtype)[6:]} kernel path")
         result[dtype] = {"launches": launches,
                          "p50": {B: runs[dtype]["gplvm", B, "p50_ms"] for B in (1, 256)}}
-    ss.LAUNCHES = 0
+    zero_counts()
     plain = serve_run(data, device="cuda", dtype=torch.float64, backend="jnp", timed=True)
-    check(ss.LAUNCHES == 0, "the plain path launched the kernel")
+    check(sum(counts().values()) == 0, f"the plain path launched a kernel: {counts()}")
     _log_times(plain, "float64 plain path")
     compare_runs(runs[torch.float64], plain, PRED_TOL_F64, "float64 kernel vs plain path")
     compare_runs(runs[torch.float32], runs[torch.float64], PRED_TOL_F32,
@@ -479,51 +582,67 @@ def _leaves(params: dict) -> dict:
             **{k: params[k] for k in ("Z", "log_beta", "q_mu", "q_logS")}}
 
 
-def reverse_pass_extended(mu, S, Y, Z, variance, lengthscale, g2, gY, chunk=128):
+def reverse_pass_extended(mu, S, Y, Z, variance, lengthscale, g2, gY, chunk=128,
+                          g=None, absolute=False):
     """(dmu, dS, dY, dZ, dvariance, dlengthscale) in numpy's long double
     (x87 80-bit on x86-64 Linux: 11 more bits than float64), point by point
     from equations (8)-(20) of docs/derivations/suffstats_vjp.md with the
     direct (mu - zbar) form: the reference that shows how far a float64
-    reverse pass can be trusted where the cotangents cancel."""
+    reverse pass can be trusted where the cotangents cancel. With `g`, the
+    psi1 op's (N, M) cotangent, in place of Y and gY: the psi1 and psi2
+    ops' reverse passes summed (W1 = g psi1, eq. (8) specialized), dY
+    empty. With `absolute`, every term of every sum by its absolute value:
+    eps * that is how far a correct float64 evaluation of the same terms
+    may land from the reference (the float64 floor)."""
     ld = np.longdouble
     check(np.finfo(ld).eps < 1e-18, "numpy long double is not extended precision here")
-    mu, S, Y, Z, v, ls, g2, gY = (np.asarray(t.detach().cpu().double().numpy(), dtype=ld)
-                                  for t in (mu, S, Y, Z, variance, lengthscale, g2, gY))
+    mu, S, Y, Z, v, ls, g2, gY, g = (
+        None if t is None else np.asarray(t.detach().cpu().double().numpy(), dtype=ld)
+        for t in (mu, S, Y, Z, variance, lengthscale, g2, gY, g))
     l2 = ls * ls
     zdiff = Z[:, None, :] - Z[None, :, :]  # (M, M, Q)
     zbar = ld(0.5) * (Z[:, None, :] + Z[None, :, :])
     G2p = g2 * v * v * np.exp(-(zdiff * zdiff / (4 * l2)).sum(-1))  # eq. (9)
-    gyv = v * gY
+    A = np.abs if absolute else (lambda x: x)
+    neg = 1 if absolute else -1
     out = {k: [] for k in ("dmu", "dS", "dY")}
     dZ, dv, dl = np.zeros(Z.shape, ld), ld(0), np.zeros(ls.shape, ld)
     for i in range(0, mu.shape[0], chunk):
-        m_, s_, y_ = mu[i:i + chunk], S[i:i + chunk], Y[i:i + chunk]
+        m_, s_ = mu[i:i + chunk], S[i:i + chunk]
         b, r = 1 / (l2 + s_), 1 / (l2 + 2 * s_)
         # psi1 branch, eq. (8), (10)-(14)
         d1 = m_[:, None, :] - Z[None]  # (c, M, Q)
         K = np.exp(-0.5 * np.log1p(s_ / l2).sum(-1)[:, None]
                    - 0.5 * (d1 * d1 * b[:, None, :]).sum(-1))
-        W1 = (y_ @ gyv.T) * K
-        s1, s1d, s1v = W1.sum(1), (W1[..., None] * d1).sum(1), (W1[..., None] * d1 * d1).sum(1)
-        out["dY"].append(K @ gyv)
-        dZ += (W1[..., None] * b[:, None, :] * d1).sum(0)
+        if g is None:
+            gyv = A(v * gY)
+            W1 = A(A(Y[i:i + chunk]) @ gyv.T) * K
+            out["dY"].append(K @ gyv)
+        else:
+            W1 = A(g[i:i + chunk] * v) * K
+        a1 = A(d1)
+        s1, s1d, s1v = W1.sum(1), (W1[..., None] * a1).sum(1), (W1[..., None] * d1 * d1).sum(1)
+        dZ += (W1[..., None] * b[:, None, :] * a1).sum(0)
         # psi2 branch, eq. (9), (15)-(20): T = G2p E over every (a, b)
         d2 = m_[:, None, None, :] - zbar[None]  # (c, M, M, Q)
         E = np.exp(-0.5 * np.log1p(2 * s_ / l2).sum(-1)[:, None, None]
                    - (d2 * d2 * r[:, None, None, :]).sum(-1))
-        T = G2p[None] * E
-        t, sd, sv = T.sum((1, 2)), (T[..., None] * d2).sum((1, 2)), (T[..., None] * d2 * d2).sum((1, 2))
-        out["dmu"].append(-b * s1d - 2 * r * sd)
-        out["dS"].append(-0.5 * b * s1[:, None] + 0.5 * b * b * s1v - r * t[:, None] + 2 * r * r * sv)
+        T = A(G2p[None] * E)
+        a2 = A(d2)
+        t, sd, sv = T.sum((1, 2)), (T[..., None] * a2).sum((1, 2)), (T[..., None] * d2 * d2).sum((1, 2))
+        out["dmu"].append(neg * b * s1d + neg * 2 * r * sd)
+        out["dS"].append(neg * 0.5 * b * s1[:, None] + 0.5 * b * b * s1v + neg * r * t[:, None]
+                         + 2 * r * r * sv)
         dv += (s1 + 2 * t).sum()
         dl += ((s_ * b / ls) * s1[:, None] + ls * b * b * s1v + (2 / ls) * s_ * r * t[:, None]
                + 2 * ls * r * r * sv).sum(0)
         dl += (T.sum(0)[..., None] * zdiff * zdiff).sum((0, 1)) / (2 * ls ** 3)
         # d/dz_a through zbar_ab and zterm_ab, for both orders of the pair
         Ts = T + T.transpose(0, 2, 1)
-        dZ += (Ts[..., None] * (r[:, None, None, :] * d2 - zdiff[None] / (2 * l2))).sum((0, 2))
-    return (np.concatenate(out["dmu"]), np.concatenate(out["dS"]), np.concatenate(out["dY"]),
-            dZ, dv / v, dl)
+        dZ += (Ts[..., None] * (r[:, None, None, :] * a2 + neg * A(zdiff[None]) / (2 * l2))
+               ).sum((0, 2))
+    return (np.concatenate(out["dmu"]), np.concatenate(out["dS"]),
+            np.concatenate(out["dY"]) if out["dY"] else None, dZ, dv / v, dl)
 
 
 def check_extended(args: tuple, n: int, what: str) -> list:
@@ -535,39 +654,94 @@ def check_extended(args: tuple, n: int, what: str) -> list:
     sub = tuple(a[:n] for a in args[:3]) + tuple(args[3:])
     with torch.no_grad():
         kernel, plain = ss.suffstats_bwd_cuda(*sub), ss.suffstats_vjp_plain(*sub)
-    ref = reverse_pass_extended(*sub)
-    failed = []
-    for name, k, p, w in zip(BWD_OUTPUTS, kernel, plain, ref):
-        w = np.asarray(w, dtype=np.longdouble).reshape(tuple(k.shape))
-        scale = np.abs(w).max()
+    return _vs_extended(BWD_OUTPUTS, kernel, plain, reverse_pass_extended(*sub), n, what)
 
-        def err(x):
-            return float(np.abs(np.asarray(x.cpu().numpy(), dtype=np.longdouble) - w).max() / scale)
-        ek, ep = err(k), err(p)
+
+def check_extended_single(args1: tuple, args2: tuple, n: int, what: str) -> list:
+    """The psi1 and psi2 reverse kernels (B6, B4), each with its plain
+    reverse pass, on the first n points of the cotangents the pallas path's
+    loss sends them (g for psi1, g2 for psi2), each against its own
+    branch's extended-precision reference: as `check_extended`, except that
+    an error below the float64 floor (eps * the sum of the terms' absolute
+    values, the noise any correct float64 evaluation carries, which the
+    loss's cancelling g2 makes large at the init) also passes."""
+    mu, S, Z, v, l, g = args1
+    sub, g, g2 = (mu[:n], S[:n], Z, v, l), g[:n], args2[5]
+    failed = []
+    for name, kernel, plain, g_psi1, g_psi2, cot in (
+            ("B6", ss.psi1_bwd_cuda, ss.psi1_vjp_plain, g, torch.zeros_like(g2), g),
+            ("B4", ss.psi2_bwd_cuda, ss.psi2_vjp_plain, torch.zeros_like(g), g2, g2)):
+        with torch.no_grad():
+            k, p = kernel(*sub, cot), plain(*sub, cot)
+        ref, floor = (
+            [r for r in reverse_pass_extended(*sub[:2], None, *sub[2:], g_psi2, None,
+                                              g=g_psi1, absolute=a) if r is not None]
+            for a in (False, True))
+        eps = float(np.finfo(np.float64).eps)
+        failed += _vs_extended(SINGLE_BWD_OUTPUTS, k, p, ref, n, f"{what}, {name}",
+                               floors=[eps * f for f in floor])
+        # the same plain pass on the host's CPU: other exp and summation
+        # code, so where the floor is high it lands elsewhere (printed only)
+        with torch.no_grad():
+            host = plain(*(t.cpu() for t in sub), cot.cpu())
+        log(f"[train] {what}, {name}, first {n} points: plain pass on the CPU vs extended "
+            f"precision: " + ", ".join(f"{o} {ext_err(h, w):.3e}"
+                                       for o, h, w in zip(SINGLE_BWD_OUTPUTS, host, ref)))
+    return failed
+
+
+def ext_err(x: torch.Tensor, ref) -> float:
+    """max |x - ref| / max |ref|, in long double."""
+    w = np.asarray(ref, dtype=np.longdouble).reshape(tuple(x.shape))
+    got = np.asarray(x.detach().cpu().numpy(), dtype=np.longdouble)
+    return float(np.abs(got - w).max() / np.abs(w).max())
+
+
+def _vs_extended(names, kernel, plain, ref, n: int, what: str, floors=None) -> list:
+    """Each output of the kernel and of the plain pass against the
+    extended-precision reference, relative to max|reference|; the outputs
+    where the kernel's error exceeds EXT_RATIO times the plain pass's,
+    EXT_FLOOR and, where `floors` are given, max(floor) / max|reference|."""
+    failed = []
+    for i, (name, k, p, w) in enumerate(zip(names, kernel, plain, ref)):
+        ek, ep = ext_err(k, w), ext_err(p, w)
+        fl = 0.0 if floors is None else float(np.max(floors[i]) / np.abs(w).max())
+        shown = ("" if floors is None else
+                 f", float64 floor {fl:.3e}; reference "
+                 + (" ".join(f"{float(x):.6g}" for x in np.ravel(w)) if np.size(w) <= 4
+                    else f"max|.| {float(np.abs(w).max()):.4e}"))
         log(f"[train] {what}, first {n} points: {name} vs extended precision: kernel "
-            f"{ek:.3e}, plain {ep:.3e}")
-        if ek > max(EXT_RATIO * ep, EXT_FLOOR):
+            f"{ek:.3e}, plain {ep:.3e}" + shown)
+        if ek > max(EXT_RATIO * ep, EXT_FLOOR, fl):
             failed.append(f"{name} kernel {ek:.3e} vs plain {ep:.3e} from extended precision")
     return failed
 
 
-def _grads_and_cotangents(model, params, Y) -> tuple:
-    """value_and_grad of the model's loss, and the arguments the op's
-    reverse kernel received (inputs plus the output cotangents g2, gY)."""
-    seen = []
-    real = ops.suffstats_bwd_cuda
+def _grads_and_cotangents(model, params, Y, kernels=("suffstats_bwd_cuda",)) -> tuple:
+    """value_and_grad of the model's loss, and the arguments each named
+    reverse kernel of `ops` received (its inputs plus the output
+    cotangents: g2, gY for the fused op; g or g2 for psi1 or psi2), in the
+    order of `kernels`."""
+    seen = {name: [] for name in kernels}
+    real = {name: getattr(ops, name) for name in kernels}
 
-    def spy(*args):
-        seen.append(args)
-        return real(*args)
+    def spy(name):
+        def call(*args):
+            seen[name].append(args)
+            return real[name](*args)
+        return call
 
-    ops.suffstats_bwd_cuda = spy
+    for name in kernels:
+        setattr(ops, name, spy(name))
     try:
         loss, grads = inference.value_and_grad(model._loss, params, (Y,))
     finally:
-        ops.suffstats_bwd_cuda = real
-    check(len(seen) == 1, f"one reverse launch expected, saw {len(seen)}")
-    return loss, grads, seen[0]
+        for name in kernels:
+            setattr(ops, name, real[name])
+    check(all(len(v) == 1 for v in seen.values()),
+          f"one launch of each reverse kernel expected, saw "
+          f"{ {k: len(v) for k, v in seen.items()} }")
+    return loss, grads, *(seen[name][0] for name in kernels)
 
 
 def compare_grads(models: dict, p0: dict, Y, what: str, *, hold: bool) -> None:
@@ -633,6 +807,18 @@ def trace_trajectories(models: dict, p0: dict, Y, steps: int, what: str) -> None
                 f"{float(ga.flatten()[i]):.6e} / {float(gb.flatten()[i]):.6e})")
 
 
+def grid_params(Y) -> dict:
+    """The GP-LVM's own init on Y with its inducing points moved onto a
+    grid over the latent means, 0.75 lengthscales apart: float64 is exact
+    there to ~1e-12."""
+    M = PAPER[1]
+    p0 = BayesianGPLVM(M=M, Q=1, device="cuda").init_params(Y)
+    lo, hi = float(p0["q_mu"].min()), float(p0["q_mu"].max())
+    p0["Z"] = torch.linspace(lo, hi, M, device="cuda", dtype=torch.float64)[:, None]
+    p0["kern"]["log_lengthscale"].fill_(float(np.log((hi - lo) / (M - 1) / 0.75)))
+    return p0
+
+
 def compare_bwd_paths(data: dict) -> None:
     """The float64 GP-LVM through the reverse kernel against the same
     model through the plain reverse pass, at two parameter sets:
@@ -656,10 +842,7 @@ def compare_bwd_paths(data: dict) -> None:
     trace_trajectories(models, p_init, Y, COMPARE_STEPS, "float64 gplvm from its init")
     compare_grads(models, p_init, Y, "float64 gplvm at its init", hold=False)
 
-    p0 = BayesianGPLVM(M=M, Q=1, device="cuda").init_params(Y)
-    lo, hi = float(p0["q_mu"].min()), float(p0["q_mu"].max())
-    p0["Z"] = torch.linspace(lo, hi, M, device="cuda", dtype=torch.float64)[:, None]
-    p0["kern"]["log_lengthscale"].fill_(float(np.log((hi - lo) / (M - 1) / 0.75)))
+    p0 = grid_params(Y)
     compare_grads(models, p0, Y, "float64 gplvm on the grid", hold=True)
     for bwd, model in models.items():
         before = ss.BWD_LAUNCHES
@@ -683,10 +866,12 @@ def phase_training(data: dict) -> dict:
     result = {}
     for dtype in (torch.float64, torch.float32):
         name = str(dtype)[6:]
-        ss.LAUNCHES = ss.BWD_LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         models = fit_models(data, dtype)
         fwd, bwd = ss.LAUNCHES, ss.BWD_LAUNCHES
+        check(sum(counts().values()) == fwd + bwd,
+              f"{name}: the fused path launched another kernel than B1 and B2: {counts()}")
         log(f"[train] {name}: 2 models x {TRAIN_STEPS} steps in "
             f"{time.perf_counter() - t0:.1f} s; {fwd} forward and {bwd} reverse "
             f"kernel launches")
@@ -713,7 +898,7 @@ def compare_dtypes(models: dict) -> None:
     float32 fit's final parameters held to F32_DESCENT_SHARE of the
     float64 fit's descent."""
     failed = []
-    for key in ("gplvm", "sgpr"):
+    for key in models[torch.float32]:
         m32, m64 = models[torch.float32][key], models[torch.float64][key]
         for dtype, m in ((torch.float32, m32), (torch.float64, m64)):
             log(f"[train] {str(dtype)[6:]} {key} losses: "
@@ -736,7 +921,99 @@ def compare_dtypes(models: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: times and the bounds
+# phase 6: the GP-LVM through backend="pallas" (kernels B3-B6)
+# ---------------------------------------------------------------------------
+
+PALLAS_KERNELS = ("psi1_fwd", "psi2_fwd", "psi1_bwd", "psi2_bwd")
+
+
+def phase_pallas(data: dict) -> dict:
+    """This slice's main path as a user drives it: a BayesianGPLVM through
+    backend="pallas" fitted from its own init, TRAIN_STEPS Adam steps per
+    dtype, then registered and served. Every counter is set to 0 just
+    before each dtype's fit and read just after the fit and after serving.
+    Returns the fitted models and the main path's launches per dtype."""
+    result = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        zero_counts()
+        t0 = time.perf_counter()
+        model = BayesianGPLVM(M=PAPER[1], Q=1, backend="pallas", device="cuda").fit(
+            _as(data["Y_lvm"], dtype), steps=TRAIN_STEPS, log_every=1)
+        torch.cuda.synchronize()
+        fit = counts()
+        log(f"[pallas] {name}: {TRAIN_STEPS} steps in {time.perf_counter() - t0:.1f} s; "
+            f"launches {fit}")
+        check(all(fit[k] == TRAIN_STEPS for k in PALLAS_KERNELS),
+              f"{name}: expected one launch of each of B3-B6 per step, got {fit}")
+        check(fit["suffstats_fwd"] == fit["suffstats_bwd"] == 0,
+              f"{name}: the pallas path launched the fused kernels")
+        h = model.history
+        log(f"[pallas] {name} gplvm: loss {h[0]:.6f} -> {h[-1]:.6f} over {len(h)} steps")
+        check(len(h) == TRAIN_STEPS and all(np.isfinite(h)), f"{name} pallas: losses {h}")
+        check(h[-1] < h[0], f"{name} pallas: the loss did not decrease")
+        serve_fitted({"gplvm_pallas": model}, dtype)
+        torch.cuda.synchronize()
+        served = counts()
+        want = {k: fit[k] + (1 if k in ("psi1_fwd", "psi2_fwd") else 0) for k in fit}
+        check(served == want, f"{name}: serving the fitted model should add one "
+              f"psi1 and one psi2 launch, got {served} after {fit}")
+        result[dtype] = {"model": model, "launches": served}
+    compare_dtypes({dt: {"gplvm_pallas": r["model"]} for dt, r in result.items()})
+    compare_backends(data)
+    return result
+
+
+def compare_backends(data: dict) -> None:
+    """The float64 GP-LVM through backend="pallas" against the same model
+    through backend="fused", loss and gradients at the same parameters:
+    from the facade's own init (printed, not held: the loss's cotangents
+    cancel there, PERF.md §6) and on the grid with every leaf in
+    float64 (loss within TOL, each gradient leaf within BACKEND_GRAD_TOL).
+    At both, the cotangents each path's reverse kernels receive are
+    compared, and B6 + B4 are held against the extended-precision reverse
+    pass on the pallas path's own cotangents (EXT_RATIO, as B2 is)."""
+    Y = _as(data["Y_lvm"], torch.float64)
+    models = {b: BayesianGPLVM(M=PAPER[1], Q=1, backend=b, device="cuda")
+              for b in ("pallas", "fused")}
+    p_init = models["fused"].init_params(Y)
+    p_grid = tree_map(lambda t: t.double(), grid_params(Y))
+    failed = []
+    for what, params, hold in (("from its init", p_init, False),
+                               ("on the grid", p_grid, True)):
+        *pallas, a1, a2 = _grads_and_cotangents(models["pallas"], params, Y,
+                                                ("psi1_bwd_cuda", "psi2_bwd_cuda"))
+        *fused, af = _grads_and_cotangents(models["fused"], params, Y)
+        res = {"pallas": pallas, "fused": fused}
+        # the cotangents each path's loss hands its reverse kernels (psi2 is
+        # bitwise the same from B1 and B3; psiY comes from other sums)
+        log(f"[pallas] float64 gplvm {what}: g2 pallas vs fused rel err "
+            f"{rel_err(a2[5], af[6]):.3e}; psi1 cotangent vs Y gY^T rel err "
+            f"{rel_err(a1[5], af[2] @ af[7].T):.3e}")
+        failed += check_extended_single(a1, a2, EXT_POINTS, f"float64 gplvm pallas {what}")
+        with torch.no_grad():
+            dz_op = ss.psi1_bwd_cuda(*a1)[2] + ss.psi2_bwd_cuda(*a2)[2]
+            dz_fused = ss.suffstats_bwd_cuda(*af)[3]
+        log(f"[pallas] float64 gplvm {what}: the ops' dZ, pallas vs fused rel err "
+            f"{rel_err(dz_op, dz_fused):.3e} (max|dZ| {float(dz_fused.abs().max()):.4e}, "
+            f"of the loss {float(res['fused'][1]['Z'].abs().max()):.4e})")
+        loss_err = abs(float(res["pallas"][0]) - float(res["fused"][0])) / abs(float(res["fused"][0]))
+        held = f"tol {TOL[torch.float64]:g}" if hold else "not held"
+        log(f"[pallas] float64 gplvm {what}: loss pallas {float(res['pallas'][0]):.12f}, "
+            f"fused {float(res['fused'][0]):.12f}, rel err {loss_err:.3e} ({held})")
+        if hold and loss_err > TOL[torch.float64]:
+            failed.append(f"loss {what} {loss_err:.3e}")
+        for name, g in _leaves(res["pallas"][1]).items():
+            err = rel_err(g, _leaves(res["fused"][1])[name])
+            log(f"[pallas]   gradient {name} ({str(g.dtype)[6:]}): rel err {err:.3e} "
+                f"({f'tol {BACKEND_GRAD_TOL:g}' if hold else 'not held'})")
+            if hold and err > BACKEND_GRAD_TOL:
+                failed.append(f"gradient {name} {what} {err:.3e}")
+    check(not failed, "backend='pallas' vs 'fused': " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: times and the bounds
 # ---------------------------------------------------------------------------
 
 def _bound(nbytes: int, flops: int, exps: int, dtype) -> tuple:
@@ -787,6 +1064,46 @@ def bwd_bound_ms(N, M, Q, D, dtype) -> tuple:
     return _bound(nbytes, flops, exps, dtype)
 
 
+def psi2_bound_ms(N, M, Q, D, dtype) -> tuple:
+    """Least work of psi2 alone (B3): the fused forward's psi2 part, M (M +
+    1) / 2 pairs per point, an exp and ~(3Q + 2) flops each. Bytes: mu, S,
+    Z, v and l read, psi2 written once."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * (2 * N * Q + M * Q + Q + 1 + M * M)
+    pairs = N * M * (M + 1) // 2
+    return _bound(nbytes, pairs * (3 * Q + 2), pairs, dtype)
+
+
+def psi2_bwd_bound_ms(N, M, Q, D, dtype) -> tuple:
+    """Least work of psi2's reverse pass (B4): the fused reverse pass's
+    (point, pair) work without its (point, m) terms, each exponential once,
+    11Q + 3 flops a pair (bwd_bound_ms). Bytes: mu, S, Z, v, l and g2 read;
+    dmu, dS, dZ, dv and dl written once."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * (4 * N * Q + 2 * M * Q + M * M + 2 * Q + 2)
+    pairs = N * M * (M + 1) // 2
+    return _bound(nbytes, pairs * (11 * Q + 3), pairs, dtype)
+
+
+def psi1_bound_ms(N, M, Q, D, dtype) -> tuple:
+    """Least work of psi1 (B5): per (point, m) an exp and ~(3Q + 2) flops
+    (the exponent and the v product). Bytes: mu, S, Z, v and l read, psi1
+    (N, M) written once, which binds."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * (2 * N * Q + M * Q + Q + 1 + N * M)
+    return _bound(nbytes, N * M * (3 * Q + 2), N * M, dtype)
+
+
+def psi1_bwd_bound_ms(N, M, Q, D, dtype) -> tuple:
+    """Least work of psi1's reverse pass (B6): per (point, m) an exp and the
+    exponent (4Q), W1 = g v K (2), s1 += W1 (1), s1d += W1 d and s1v +=
+    (W1 d) d (4Q), dZ += (W1 d) b (2Q): 10Q + 3 flops. Bytes: mu, S, Z, v,
+    l and g (N, M) read, dmu, dS, dZ, dv and dl written once; g binds."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * (4 * N * Q + N * M + 2 * M * Q + 2 * Q + 2)
+    return _bound(nbytes, N * M * (10 * Q + 3), N * M, dtype)
+
+
 def step_ms(model) -> float:
     """Median wall time of one training step after the first (loss, its
     gradients through both kernels, the Adam update), from the fitted
@@ -820,33 +1137,56 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def phase_times(trained: dict) -> dict:
+def _time_kernel(out: dict, key, what: str, kernel, plain, bound: tuple,
+                 reps: int) -> None:
+    t = cuda_ms(kernel, reps=reps)
+    p = cuda_ms(plain, reps=3, warmup=1)
+    out[key] = {"ms": t, "plain_ms": p, "bound_ms": bound[0], "bound_by": bound[1]}
+    log(f"[time] {what}: kernel {t:.3f} ms, plain {p:.3f} ms, bound {bound[0]:.3f} ms "
+        f"({bound[2]}; kernel at {100 * bound[0] / t:.1f} % of it)")
+
+
+def phase_times(trained: dict, pallas: dict) -> dict:
     """Kernel, plain-version and training-step times; none of these
     launches counts towards a main path."""
     N, M, Q, D = PAPER
     x64 = kernel_inputs(N, M, Q, D, True)
     g64 = bwd_cotangents(M, D)
-    counts = (ss.LAUNCHES, ss.BWD_LAUNCHES)
+    gn64 = random_g(N, M)
+    saved = counts()
     out = {}
     for dtype in (torch.float64, torch.float32):
         name = str(dtype)[6:]
+        shape = f"{name} N={N} M={M} Q={Q} D={D}"
         x = [a.to(dtype) for a in x64]
         g = [a.to(dtype) for a in g64]
-        ms = cuda_ms(lambda: ss.suffstats_cuda(*x), reps=20)
-        plain_ms = cuda_ms(lambda: ss.suffstats_fused_plain(*x), reps=3, warmup=1)
-        bms = cuda_ms(lambda: ss.suffstats_bwd_cuda(*x, *g), reps=10)
-        bplain_ms = cuda_ms(lambda: ss.suffstats_vjp_plain(*x, *g), reps=3, warmup=1)
-        for what, t, p, bound in (("fwd", ms, plain_ms, bound_ms(N, M, Q, D, dtype)),
-                                  ("bwd", bms, bplain_ms, bwd_bound_ms(N, M, Q, D, dtype))):
-            out[dtype, what] = {"ms": t, "plain_ms": p, "bound_ms": bound[0],
-                                "bound_by": bound[1]}
-            log(f"[time] suffstats_{what} {name} N={N} M={M} Q={Q} D={D}: "
-                f"kernel {t:.3f} ms, plain {p:.3f} ms, bound {bound[0]:.3f} ms "
-                f"({bound[2]}; kernel at {100 * bound[0] / t:.1f} % of it)")
-        for key, model in trained[dtype]["models"].items():
+        gn = gn64.to(dtype)
+        xs = (x[0], x[1], *x[3:])  # (mu, S, Z, v, l)
+        _time_kernel(out, (dtype, "fwd"), f"suffstats_fwd {shape}",
+                     lambda: ss.suffstats_cuda(*x), lambda: ss.suffstats_fused_plain(*x),
+                     bound_ms(N, M, Q, D, dtype), reps=20)
+        _time_kernel(out, (dtype, "bwd"), f"suffstats_bwd {shape}",
+                     lambda: ss.suffstats_bwd_cuda(*x, *g),
+                     lambda: ss.suffstats_vjp_plain(*x, *g),
+                     bwd_bound_ms(N, M, Q, D, dtype), reps=10)
+        _time_kernel(out, (dtype, "psi2_fwd"), f"psi2_fwd {shape}",
+                     lambda: p2.psi2_cuda(*xs), lambda: p2.psi2_plain(*xs),
+                     psi2_bound_ms(N, M, Q, D, dtype), reps=20)
+        _time_kernel(out, (dtype, "psi2_bwd"), f"psi2_bwd {shape}",
+                     lambda: ss.psi2_bwd_cuda(*xs, g[0]),
+                     lambda: ss.psi2_vjp_plain(*xs, g[0]),
+                     psi2_bwd_bound_ms(N, M, Q, D, dtype), reps=10)
+        _time_kernel(out, (dtype, "psi1_fwd"), f"psi1_fwd {shape}",
+                     lambda: p1.psi1_cuda(*xs), lambda: p1.psi1_plain(*xs),
+                     psi1_bound_ms(N, M, Q, D, dtype), reps=20)
+        _time_kernel(out, (dtype, "psi1_bwd"), f"psi1_bwd {shape}",
+                     lambda: ss.psi1_bwd_cuda(*xs, gn), lambda: ss.psi1_vjp_plain(*xs, gn),
+                     psi1_bwd_bound_ms(N, M, Q, D, dtype), reps=20)
+        models = {**trained[dtype]["models"], "gplvm pallas": pallas[dtype]["model"]}
+        for key, model in models.items():
             log(f"[time] training step {name} {key} (N={N}, M={M}): "
                 f"{step_ms(model):.3f} ms median of {TIMED_STEPS - 1} after the first")
-    ss.LAUNCHES, ss.BWD_LAUNCHES = counts  # timing launches are not a main path's
+    set_counts(saved)  # timing launches are not a main path's
     return out
 
 
@@ -869,10 +1209,12 @@ def main() -> int:
         phase("build", phase_build)
         errs = phase("forward kernel vs plain", phase_kernels)
         bwd_errs = phase("reverse kernel vs plain", phase_bwd_kernels)
+        single_errs = phase("single-statistic kernels vs plain", phase_single_kernels)
         data = serving_data(PAPER[0], PAPER[1])
         served = phase("serving", phase_serving, data)
         trained = phase("training", phase_training, data)
-        times = phase("times", phase_times, trained)
+        pallas = phase("pallas training", phase_pallas, data)
+        times = phase("times", phase_times, trained, pallas)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -887,6 +1229,11 @@ def main() -> int:
         kernels.append({"name": f"suffstats_bwd_{name}", **ROUTE_BWD,
                         "launches": trained[dtype]["launches"]["bwd"],
                         "max_abs_err": bwd_errs[dtype], **times[dtype, "bwd"]})
+        for kernel, route in SINGLE_ROUTES.items():
+            kernels.append({"name": f"{kernel}_{name}", **route,
+                            "launches": pallas[dtype]["launches"][kernel],
+                            "max_abs_err": single_errs[kernel, dtype],
+                            **times[dtype, kernel]})
     log(f"[phase] total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -72,8 +72,9 @@ def local_stats(params: Params, Y_local: torch.Tensor, *,
                 chunk: Optional[int] = None,
                 bwd_backend: str = "auto") -> psi_stats.SuffStats:
     """Sufficient statistics of the local data, kernel-dispatched. `chunk=`
-    streams the datapoints (O(chunk * M) live memory); `bwd_backend` picks
-    the fused op's reverse pass."""
+    streams the datapoints (O(chunk * M) live memory); `backend` is "jnp",
+    "fused" or "pallas" (the psi1 and psi2 ops); `bwd_backend` picks the
+    ops' reverse passes."""
     kern = default_rbf(kernel, params["q_mu"].shape[1])
     S = torch.exp(params["q_logS"])
     return suff_stats(kern, params["kern"],

@@ -15,9 +15,12 @@ under `combine` (with `subtract` as its inverse).
 `backend="fused"` routes the RBF statistics through the fused op
 (`repro_torch.kernels.ops.suffstats`: the CUDA kernel on the card, its
 plain version on the CPU; the exact path rides it with S = 0);
-`backend="jnp"` keeps the name of the reference's plain path and computes
-with plain PyTorch (a chunked loop over N for Psi2). `backend="pallas"`
-(the single-statistic kernels) comes with a later slice.
+`backend="pallas"` routes the expected statistics through the
+single-statistic ops `ops.psi1` and `ops.psi2` (their CUDA kernels on the
+card), with psiY = psi1^T Y as a matrix product; `backend="jnp"` keeps the
+name of the reference's plain path and computes with plain PyTorch (a
+chunked loop over N for Psi2). The exact statistics through
+`backend="pallas"` (the K_fu kernel) come with a later slice.
 """
 from __future__ import annotations
 
@@ -66,13 +69,12 @@ def checkpointed(fn, *args):
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
+BACKENDS = ("jnp", "fused", "pallas")
+
+
 def _check_backend(backend: str) -> None:
-    if backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' (the single-statistic kfu/psi1/psi2 kernels) "
-            "comes with a later slice of the port; use 'fused' or 'jnp'")
-    if backend not in ("jnp", "fused"):
-        raise ValueError(f"backend must be 'jnp' or 'fused', got {backend!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
 
 
 def _count(X: torch.Tensor) -> torch.Tensor:
@@ -86,6 +88,11 @@ def _count(X: torch.Tensor) -> torch.Tensor:
 def exact_stats_rbf(kern_params, X, Y, Z, *, backend: str = "jnp",
                     bwd_backend: str = "auto") -> SuffStats:
     _check_backend(backend)
+    if backend == "pallas":
+        raise NotImplementedError(
+            "exact statistics through backend='pallas' need the K_fu kernel "
+            "(B7, kfu_pallas), which comes with a later slice of the port; "
+            "use 'fused' or 'jnp'")
     variance = _rbf_variance(kern_params)
     lengthscale = _rbf_lengthscale(kern_params)
     if backend == "fused":
@@ -151,6 +158,16 @@ def expected_stats_rbf(kern_params, mu, S, Y, Z, *, backend: str = "jnp",
 
         psi2, psiY = ops.suffstats(mu, S, Y, Z, variance, lengthscale,
                                    bwd_backend=bwd_backend)
+    elif backend == "pallas":
+        # the single-statistic ops, kernelized in both directions; psiY is a
+        # plain matrix product outside any kernel, as in the reference
+        from repro_torch.kernels import ops
+
+        psi1 = ops.psi1(mu, S, Z, variance, lengthscale,
+                        bwd_backend=bwd_backend)
+        psi2 = ops.psi2(mu, S, Z, variance, lengthscale,
+                        bwd_backend=bwd_backend)
+        psiY = psi1.T @ Y
     else:
         psi1 = ref.psi1_rbf(mu, S, Z, variance, lengthscale)
         psi2 = _psi2_rbf_chunked(mu, S, Z, variance, lengthscale,

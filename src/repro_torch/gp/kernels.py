@@ -106,7 +106,8 @@ class RBF(Kernel):
 
     stored as unconstrained log-values. Its statistics run through the
     fused kernel with backend="fused" (expected ones, and exact ones via
-    S -> 0).
+    S -> 0) and, for the expected ones, through the psi1 and psi2 kernels
+    with backend="pallas".
     """
 
     input_dim: int

@@ -11,8 +11,9 @@ and the posterior/prediction epilogue. The math stays where it is —
 
 `backend=` routes the statistics through the fused op ("fused": expected
 statistics for the GP-LVM, exact ones for regression via S -> 0; the CUDA
-kernels on the card) or plain PyTorch ("jnp"); `bwd_backend=` picks the
-fused op's reverse pass ("auto": the reverse kernel on the card);
+kernels on the card), the single-statistic psi1 and psi2 ops ("pallas",
+the GP-LVM only) or plain PyTorch ("jnp"); `bwd_backend=` picks the ops'
+reverse passes ("auto": the reverse kernels on the card);
 `chunk=` streams the plain statistics over N in chunks of that size.
 `device=` is where data and parameters live: the CUDA device unless
 ``device="cpu"``; numpy arrays and tensors given to `fit` and `predict`
@@ -20,7 +21,8 @@ are moved there in their own dtype.
 
 Not ported yet, each raising `NotImplementedError`: `mesh=` (the
 data-parallel path of `core/distributed.py`), `chunk="auto"` (the
-autotuner) and `regression(backend="temporal")`.
+autotuner), `SparseGPRegression(backend="pallas")` (the K_fu kernel, B7)
+and `regression(backend="temporal")`.
 """
 from __future__ import annotations
 
@@ -168,7 +170,8 @@ class SparseGPRegression(_CollapsedGPModel):
         inferred).
       M: number of inducing points (initialized as a subset of X).
       backend: "jnp" | "fused" statistics path ("fused" rides the fused
-        statistics kernels with S -> 0 in both directions).
+        statistics kernels with S -> 0 in both directions); "pallas" (the
+        K_fu kernel, B7) comes with a later slice of the port.
       chunk: stream the plain statistics in chunks of this size; None = one
         shot.
       bwd_backend: "auto" | "pallas" | "jnp" — the fused op's reverse pass.
@@ -180,6 +183,11 @@ class SparseGPRegression(_CollapsedGPModel):
                  chunk: Optional[Union[int, str]] = None,
                  bwd_backend: str = "auto",
                  device: str | torch.device = _device.DEFAULT_DEVICE):
+        if backend == "pallas":
+            raise NotImplementedError(
+                "SparseGPRegression(backend='pallas') needs the K_fu kernel "
+                "(B7, kfu_pallas), which comes with a later slice of the "
+                "port; use 'fused' or 'jnp'")
         super().__init__(kernel, M, mesh=mesh, backend=backend, chunk=chunk,
                          bwd_backend=bwd_backend, device=device)
 
@@ -229,8 +237,9 @@ class BayesianGPLVM(_CollapsedGPModel):
       Q: latent dimensionality.
       M: number of inducing points.
       backend / chunk / bwd_backend / device: as for SparseGPRegression;
-        backend="fused" is the fused statistics op, differentiable through
-        the hand-derived reverse pass (the reverse kernel on the card).
+        backend="fused" is the fused statistics op and backend="pallas" the
+        psi1 and psi2 ops, each differentiable through its hand-derived
+        reverse pass (the reverse kernels on the card).
     """
 
     def __init__(self, kernel: Optional[Kernel] = None, M: int = 100,

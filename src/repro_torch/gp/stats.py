@@ -4,15 +4,17 @@ Counterpart of `repro.gp.stats`: one entry point, `suff_stats(kernel,
 params, batch, backend=..., chunk=...)`. The batch type selects exact
 (deterministic X) vs expected (Gaussian q(X)) statistics, the kernel
 supplies the math, and `backend` routes the hot path through the fused op
-("fused") or plain PyTorch ("jnp").
+("fused"), the single-statistic ops ("pallas", expected statistics only)
+or plain PyTorch ("jnp").
 
 `chunk=` streams the N datapoints in chunks of that size and combines the
 per-chunk `SuffStats` through the monoid: a Python loop over the full
 chunks, then one explicit tail chunk (no padding), so peak live memory is
-O(chunk * M + M^2) regardless of N. Each chunk of the plain backend is
-checkpointed, so a backward pass through the loop also stays at
-O(chunk * M + M^2) beyond the per-point inputs; the fused op saves only
-its inputs already and is not.
+O(chunk * M + M^2) regardless of N. Each chunk of the plain and "pallas"
+backends is checkpointed, as the reference's scan is (a "pallas" chunk's
+psi1^T Y product keeps psi1 (chunk, M) wherever Y needs a gradient), so a
+backward pass through the loop also stays at O(chunk * M + M^2) beyond the
+per-point inputs; the fused op saves only its inputs already and is not.
 """
 from __future__ import annotations
 
@@ -60,8 +62,8 @@ def streaming_suff_stats(kernel: Kernel, params: Params, batch: Batch, *,
                          backend: str = "jnp", chunk: Union[int, str] = 4096,
                          bwd_backend: str = "auto") -> SuffStats:
     """`suff_stats` as a loop over N in chunks: O(chunk * M + M^2) live,
-    each plain-backend chunk checkpointed. A non-dividing N ends in an
-    explicit tail chunk."""
+    each chunk of the plain and "pallas" backends checkpointed. A
+    non-dividing N ends in an explicit tail chunk."""
     if not isinstance(batch, (ExactBatch, ExpectedBatch)):
         raise TypeError(f"expected ExactBatch or ExpectedBatch, got {type(batch).__name__}")
     if isinstance(chunk, str):

@@ -1,7 +1,8 @@
-// Shared by the forward (suffstats_fwd.cu) and reverse (suffstats_bwd.cu)
-// psi-statistics kernels: the psi2 tile layout, the per-point staging of the
-// psi2 exponent's terms, and the fixed-order sum of per-block partials that
-// keeps both kernels free of atomics and bitwise repeatable.
+// Shared by the psi-statistics kernels (suffstats_fwd.cu, suffstats_bwd.cu,
+// psi2_fwd.cu, psi2_bwd.cu, psi1_fwd.cu, psi1_bwd.cu): the psi2 tile layout,
+// the per-point staging of the psi2 exponent's terms, the psi2 partial-sum
+// kernel of the two forwards, and the fixed-order sum of per-block partials
+// that keeps every kernel free of atomics and bitwise repeatable.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -139,6 +140,136 @@ cudaError_t reduce_partials(const T* part, T* out, int P, int slabs, int rows,
   reduce_partials_kernel<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
                               kThreads, 0, stream>>>(part, out, P, slabs, rows, cols,
                                                      sym_tile);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// psi2 partial sums: shared by the fused forward (suffstats_fwd.cu) and the
+// psi2-only forward (psi2_fwd.cu)
+// ---------------------------------------------------------------------------
+
+// part[p, a, b] = sum over split p's datapoints of exp(lognorm2 - sum_q
+// (mu_q - zbar_abq)^2 r_q), for the upper-triangular kTile x kTile tiles
+// (grid.x) and the N-splits (grid.y); tiles below the diagonal are left
+// unwritten, for reduce_partials' sym_tile to mirror.
+// QC > 0: Q is the compile-time QC (z-bar lives in registers);
+// QC == 0: Q is read at run time (z-bar from shared memory).
+template <typename T, int QC>
+__global__ void __launch_bounds__(kThreads)
+psi2_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
+                    const T* __restrict__ Z, const T* __restrict__ l2,
+                    T* __restrict__ part, int N, int M, int Q, int P) {
+  const int Qn = QC > 0 ? QC : Q;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Psi2Smem<T> sm = psi2_smem<T>(smem_raw, Qn);
+
+  int ti, tj;
+  tri_tile(blockIdx.x, (M + kTile - 1) / kTile, &ti, &tj);
+  const int p = blockIdx.y;
+  int n0, n1;
+  split_range(N, P, p, &n0, &n1);
+  const int tid = threadIdx.x;
+  const int col = tid % kTile;   // lane -> column m'
+  const int row0 = tid / kTile;  // warp -> rows row0 + k * kRowStep
+  const int ma = ti * kTile;
+  const int mb = tj * kTile;
+  load_psi2_tile(sm, Z, l2, ma, mb, M, Qn);
+
+  // rows of this warp inside M form a prefix k < krows (warp-uniform)
+  const int krows = min(kRows, max(0, (M - ma - row0 + kRowStep - 1) / kRowStep));
+  double acc[kRows];  // the running total, over every staged run
+  T run[kRows];       // one staged run's sum
+  T zb[kRows][QC > 0 ? QC : 1];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    acc[k] = 0.0;
+    if constexpr (QC > 0) {
+#pragma unroll
+      for (int q = 0; q < QC; ++q)
+        zb[k][q] = T(0.5) * (sm.za[(row0 + k * kRowStep) * QC + q] + sm.zb[col * QC + q]);
+    }
+  }
+
+  for (int base = n0; base < n1; base += kStage) {
+    const int cnt = min(kStage, n1 - base);
+    stage_psi2_points(sm, mu, S, base, cnt, Qn);
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) run[k] = T(0);
+    if constexpr (QC > 0) {
+      for (int i = 0; i < cnt; ++i) {
+        T mu_i[QC], r_i[QC];
+#pragma unroll
+        for (int q = 0; q < QC; ++q) {
+          mu_i[q] = sm.mu[i * QC + q];
+          r_i[q] = sm.r[i * QC + q];
+        }
+        const T lg = sm.lg[i];
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+          if (k < krows) {
+            T e = lg;
+#pragma unroll
+            for (int q = 0; q < QC; ++q) {
+              const T d = mu_i[q] - zb[k][q];
+              e -= d * d * r_i[q];
+            }
+            run[k] += exp_t(e);
+          }
+        }
+      }
+    } else {
+      for (int i = 0; i < cnt; ++i) {
+        const T lg = sm.lg[i];
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+          if (k < krows) {
+            const int row = row0 + k * kRowStep;
+            T e = lg;
+            for (int q = 0; q < Qn; ++q) {
+              const T zbar = T(0.5) * (sm.za[row * Qn + q] + sm.zb[col * Qn + q]);
+              const T d = sm.mu[i * Qn + q] - zbar;
+              e -= d * d * sm.r[i * Qn + q];
+            }
+            run[k] += exp_t(e);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) acc[k] += static_cast<double>(run[k]);
+  }
+
+  if (mb + col < M) {
+    T* out = part + static_cast<size_t>(p) * M * M;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k)
+      if (k < krows)
+        out[static_cast<size_t>(ma + row0 + k * kRowStep) * M + mb + col] = static_cast<T>(acc[k]);
+  }
+}
+
+template <typename T, int QC>
+void launch_psi2(dim3 grid, size_t smem, cudaStream_t stream, const T* mu,
+                 const T* S, const T* Z, const T* l2, T* part, int N, int M,
+                 int Q, int P) {
+  psi2_partial_kernel<T, QC><<<grid, kThreads, smem, stream>>>(mu, S, Z, l2, part, N, M, Q, P);
+}
+
+// the psi2 partials (P, M, M) of every upper-triangular tile and N-split
+template <typename T>
+cudaError_t psi2_partials(const T* mu, const T* S, const T* Z, const T* l2,
+                          T* part, int N, int M, int Q, int P,
+                          cudaStream_t stream) {
+  const int tiles = (M + kTile - 1) / kTile;
+  const dim3 grid(tiles * (tiles + 1) / 2, P);
+  const size_t smem = psi2_smem_bytes<T>(Q);
+  switch (Q) {
+    case 1: launch_psi2<T, 1>(grid, smem, stream, mu, S, Z, l2, part, N, M, Q, P); break;
+    case 2: launch_psi2<T, 2>(grid, smem, stream, mu, S, Z, l2, part, N, M, Q, P); break;
+    case 3: launch_psi2<T, 3>(grid, smem, stream, mu, S, Z, l2, part, N, M, Q, P); break;
+    case 4: launch_psi2<T, 4>(grid, smem, stream, mu, S, Z, l2, part, N, M, Q, P); break;
+    default: launch_psi2<T, 0>(grid, smem, stream, mu, S, Z, l2, part, N, M, Q, P);
+  }
   return cudaGetLastError();
 }
 

@@ -1,0 +1,89 @@
+// Reverse pass of the psi2 statistic alone for the RBF-ARD kernel, written by
+// hand for Hopper (sm_90a).
+//
+// Replaces: src/repro/kernels/suffstats.py: psi2_bwd_pallas (the Pallas TPU
+// kernel _psi2_bwd_kernel), which is the fused reverse kernel with the
+// psi1/psiY branch removed. Equation numbers are those of
+// docs/derivations/suffstats_vjp.md. With l2 = l^2, r = 1 / (l2 + 2 S),
+// zbar_ab = (z_a + z_b) / 2 and the forward's factor
+//
+//   E_nab = exp(-1/2 sum_q log1p(2 S_nq / l2_q) - sum_q (mu_nq - zbar_abq)^2 r_nq)
+//
+// the caller folds the (m, m')-only prefactor into the cotangent,
+// G2p = g2 v^2 exp(zterm) (eq. (9)), and passes Gw = the upper triangle of
+// G2p + G2p^T with G2p's diagonal. The kernels compute
+//
+//   point pass, per datapoint n (eq. (16)-(17), (19)-(20)):
+//     t = sum_{a<=b} Gw_ab E_ab, sd = sum Gw E (mu - zbar),
+//     sv = sum Gw E (mu - zbar)^2, tz = sum Gw E (z_a - z_b)^2
+//     dmu = -2 r sd,  dS = -r t + 2 r^2 sv,
+//     dl (eq. (20)) and dv_raw = 2 t, summed over the points
+//   pair pass, per (a, b) (the global sums of eq. (18)):
+//     P_ab = sum_n E_nab,  A_abq = sum_n E_nab r_nq (mu_nq - zbar_abq)
+//
+// and the caller's O(M^2 Q) epilogue turns P and A into dZ and divides
+// dv_raw by v.
+//
+// What bounds it on this card: the least work is N M (M + 1) / 2
+// exponentials, each once, and about 11 Q + 3 floating-point operations per
+// (point, pair) (chip_smoke.py: psi2_bwd_bound_ms) against O(N Q) bytes, so
+// the exp units (float) or FP64 issue (double) bound it, never memory. This
+// design evaluates every exponential twice.
+//
+// What the design does about it: it runs the fused reverse kernel's point
+// and pair passes (reverse.cuh) without the psi1 branch, as the TPU kernel is
+// the fused one with that branch removed:
+//   * the TPU kernel carries dZ, dv and dl across its sequential grid; here
+//     every global sum is a per-block partial, summed by a second kernel in
+//     an order fixed by the shapes: no atomics, bitwise repeatable;
+//   * the direct (mu - zbar) exponent and moments, which do not cancel in
+//     float32;
+//   * two-level sums (a point's pairs row by row; the pair pass's points run
+//     by run, totals in double), and dl's zterm part summed point by point,
+//     where the loss's g2 can be large and cancel across pairs;
+//   * ragged N and M are masked at the bounds; nothing is padded.
+#include "reverse.cuh"
+
+namespace {
+
+template <typename T>
+cudaError_t psi2_bwd(const T* mu, const T* S, const T* Z, const T* l2,
+                     const T* ls, const T* Gw, T* dmu, T* dS, T* point_part,
+                     T* point_sum, T* pair_part, T* pair_sum, int N, int M,
+                     int Q, int P2, int NB, cudaStream_t stream) {
+  cudaError_t err = point_pass<T, false>(NB, stream, mu, S, nullptr, Z, l2, ls, Gw,
+                                         nullptr, dmu, dS, nullptr, point_part, N,
+                                         M, Q, 0);
+  if (err != cudaSuccess) return err;
+  err = pair_pass<T>(P2, stream, mu, S, Z, l2, pair_part, N, M, Q);
+  if (err != cudaSuccess) return err;
+  err = reduce_partials<T>(point_part, point_sum, NB, 1, 1, Q + 1, 0, stream);
+  if (err != cudaSuccess) return err;
+  return reduce_partials<T>(pair_part, pair_sum, P2, Q + 1, M, M, kTile, stream);
+}
+
+}  // namespace
+
+// Plain C interface (bound with ctypes). Pointers are device pointers of
+// contiguous row-major arrays: mu, S (N, Q); Z (M, Q); l2, ls (Q); Gw
+// (M, M); outputs dmu, dS (N, Q); scratch point_part (NB, Q + 1), pair_part
+// (P2, Q + 1, M, M); sums point_sum (Q + 1) = [dl_point, dv_raw], pair_sum
+// (Q + 1, M, M) = [P, A_1..A_Q]. NB must be ceil(N / 256). Launches on
+// `stream`, does not synchronize, returns the first cudaGetLastError() that
+// is not cudaSuccess (0 on success).
+#define PSI2_BWD_ENTRY(NAME, T)                                                    \
+  extern "C" int NAME(const T* mu, const T* S, const T* Z, const T* l2, const T* ls, \
+                      const T* Gw, T* dmu, T* dS, T* point_part, T* point_sum,     \
+                      T* pair_part, T* pair_sum, int N, int M, int Q, int P2,      \
+                      int NB, void* stream) {                                      \
+    return static_cast<int>(psi2_bwd<T>(mu, S, Z, l2, ls, Gw, dmu, dS, point_part, \
+                                        point_sum, pair_part, pair_sum, N, M, Q,   \
+                                        P2, NB, static_cast<cudaStream_t>(stream))); \
+  }
+
+PSI2_BWD_ENTRY(psi2_bwd_f32, float)
+PSI2_BWD_ENTRY(psi2_bwd_f64, double)
+
+extern "C" const char* psi2_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -55,102 +55,6 @@ constexpr int kYTileM = 32;
 constexpr int kYTileD = kThreads / kYTileM;
 constexpr int kYStage = 64;
 
-// QC > 0: Q is the compile-time QC (z-bar lives in registers);
-// QC == 0: Q is read at run time (z-bar from shared memory).
-template <typename T, int QC>
-__global__ void __launch_bounds__(kThreads)
-psi2_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
-                    const T* __restrict__ Z, const T* __restrict__ l2,
-                    T* __restrict__ part, int N, int M, int Q, int P) {
-  const int Qn = QC > 0 ? QC : Q;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Psi2Smem<T> sm = psi2_smem<T>(smem_raw, Qn);
-
-  int ti, tj;
-  tri_tile(blockIdx.x, (M + kTile - 1) / kTile, &ti, &tj);
-  const int p = blockIdx.y;
-  int n0, n1;
-  split_range(N, P, p, &n0, &n1);
-  const int tid = threadIdx.x;
-  const int col = tid % kTile;   // lane -> column m'
-  const int row0 = tid / kTile;  // warp -> rows row0 + k * kRowStep
-  const int ma = ti * kTile;
-  const int mb = tj * kTile;
-  load_psi2_tile(sm, Z, l2, ma, mb, M, Qn);
-
-  // rows of this warp inside M form a prefix k < krows (warp-uniform)
-  const int krows = min(kRows, max(0, (M - ma - row0 + kRowStep - 1) / kRowStep));
-  double acc[kRows];  // the running total, over every staged run
-  T run[kRows];       // one staged run's sum
-  T zb[kRows][QC > 0 ? QC : 1];
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    acc[k] = 0.0;
-    if constexpr (QC > 0) {
-#pragma unroll
-      for (int q = 0; q < QC; ++q)
-        zb[k][q] = T(0.5) * (sm.za[(row0 + k * kRowStep) * QC + q] + sm.zb[col * QC + q]);
-    }
-  }
-
-  for (int base = n0; base < n1; base += kStage) {
-    const int cnt = min(kStage, n1 - base);
-    stage_psi2_points(sm, mu, S, base, cnt, Qn);
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) run[k] = T(0);
-    if constexpr (QC > 0) {
-      for (int i = 0; i < cnt; ++i) {
-        T mu_i[QC], r_i[QC];
-#pragma unroll
-        for (int q = 0; q < QC; ++q) {
-          mu_i[q] = sm.mu[i * QC + q];
-          r_i[q] = sm.r[i * QC + q];
-        }
-        const T lg = sm.lg[i];
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) {
-          if (k < krows) {
-            T e = lg;
-#pragma unroll
-            for (int q = 0; q < QC; ++q) {
-              const T d = mu_i[q] - zb[k][q];
-              e -= d * d * r_i[q];
-            }
-            run[k] += exp_t(e);
-          }
-        }
-      }
-    } else {
-      for (int i = 0; i < cnt; ++i) {
-        const T lg = sm.lg[i];
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) {
-          if (k < krows) {
-            const int row = row0 + k * kRowStep;
-            T e = lg;
-            for (int q = 0; q < Qn; ++q) {
-              const T zbar = T(0.5) * (sm.za[row * Qn + q] + sm.zb[col * Qn + q]);
-              const T d = sm.mu[i * Qn + q] - zbar;
-              e -= d * d * sm.r[i * Qn + q];
-            }
-            run[k] += exp_t(e);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) acc[k] += static_cast<double>(run[k]);
-  }
-
-  if (mb + col < M) {
-    T* out = part + static_cast<size_t>(p) * M * M;
-#pragma unroll
-    for (int k = 0; k < kRows; ++k)
-      if (k < krows)
-        out[static_cast<size_t>(ma + row0 + k * kRowStep) * M + mb + col] = static_cast<T>(acc[k]);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 psiy_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
@@ -225,29 +129,12 @@ psiy_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   if (m < M && d < D) part[(static_cast<size_t>(p) * M + m) * D + d] = static_cast<T>(acc);
 }
 
-template <typename T, int QC>
-void launch_psi2(dim3 grid, size_t smem, cudaStream_t stream, const T* mu,
-                 const T* S, const T* Z, const T* l2, T* part, int N, int M,
-                 int Q, int P) {
-  psi2_partial_kernel<T, QC><<<grid, kThreads, smem, stream>>>(mu, S, Z, l2, part, N, M, Q, P);
-}
-
 template <typename T>
 cudaError_t suffstats_fwd(const T* mu, const T* S, const T* Y, const T* Z,
                           const T* l2, T* part2, T* partY, T* acc2, T* accY,
                           int N, int M, int Q, int D, int P2, int PY,
                           cudaStream_t stream) {
-  const int tiles = (M + kTile - 1) / kTile;
-  const dim3 grid2(tiles * (tiles + 1) / 2, P2);
-  const size_t smem2 = psi2_smem_bytes<T>(Q);
-  switch (Q) {
-    case 1: launch_psi2<T, 1>(grid2, smem2, stream, mu, S, Z, l2, part2, N, M, Q, P2); break;
-    case 2: launch_psi2<T, 2>(grid2, smem2, stream, mu, S, Z, l2, part2, N, M, Q, P2); break;
-    case 3: launch_psi2<T, 3>(grid2, smem2, stream, mu, S, Z, l2, part2, N, M, Q, P2); break;
-    case 4: launch_psi2<T, 4>(grid2, smem2, stream, mu, S, Z, l2, part2, N, M, Q, P2); break;
-    default: launch_psi2<T, 0>(grid2, smem2, stream, mu, S, Z, l2, part2, N, M, Q, P2);
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = psi2_partials<T>(mu, S, Z, l2, part2, N, M, Q, P2, stream);
   if (err != cudaSuccess) return err;
 
   const dim3 gridY((M + kYTileM - 1) / kYTileM, (D + kYTileD - 1) / kYTileD, PY);

@@ -1,5 +1,6 @@
 """Card-only tests of the port's CUDA kernels (marker `cuda`): each kernel
-against its plain PyTorch version on the card. Imports no JAX, so it runs
+(the fused forward and reverse, psi1 and psi2 and their reverses) against
+its plain PyTorch version on the card. Imports no JAX, so it runs
 on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -9,7 +10,7 @@ need not have.)
 
 Elsewhere every test skips. Float64 kernel within 1e-10 and float32 within
 1e-4 of the float64 plain version, relative to max|plain| per output
-(float32 sums ~1e4 terms per thread in another order). Both kernels are
+(float32 sums ~1e4 terms per thread in another order). Every kernel is
 held to be bitwise reproducible.
 """
 import numpy as np
@@ -17,6 +18,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import psi1 as p1
+from repro_torch.kernels import psi2 as p2
 from repro_torch.kernels import suffstats as ss
 
 pytestmark = pytest.mark.cuda
@@ -136,3 +139,93 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(card):
         ss.suffstats_bwd_cuda(*arrs[:7], arrs[7].float())
     with pytest.raises(ValueError, match="CUDA"):
         ss.suffstats_bwd_cuda(*(a.cpu() for a in arrs))
+
+
+# ---------------------------------------------------------------------------
+# the single-statistic kernels: psi1, psi2 and their reverse passes
+# ---------------------------------------------------------------------------
+
+def _single(case, seed=2):
+    """(mu, S, Z, variance, lengthscale, g (N, M), g2 (M, M)) for `case`."""
+    N, M, Q, _, pos_S = case
+    mu, S, _, Z, v, l = _inputs(N, M, Q, 1, pos_S)
+    rng = np.random.default_rng(seed)
+    return [mu, S, Z, v, l, torch.as_tensor(rng.normal(size=(N, M))),
+            torch.as_tensor(rng.normal(size=(M, M)))]
+
+
+SINGLE = {  # name: (kernel wrapper, plain version, cotangent index or None, counter)
+    "psi1": (p1.psi1_cuda, p1.psi1_plain, None, (p1, "LAUNCHES")),
+    "psi2": (p2.psi2_cuda, p2.psi2_plain, None, (p2, "LAUNCHES")),
+    "psi1_bwd": (ss.psi1_bwd_cuda, ss.psi1_vjp_plain, 5, (ss, "PSI1_BWD_LAUNCHES")),
+    "psi2_bwd": (ss.psi2_bwd_cuda, ss.psi2_vjp_plain, 6, (ss, "PSI2_BWD_LAUNCHES")),
+}
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32), ids=str)
+@pytest.mark.parametrize("case", CASES, ids=str)
+@pytest.mark.parametrize("name", sorted(SINGLE))
+def test_single_stat_kernel_matches_plain(card, name, case, dtype):
+    kernel, plain, gi, (module, counter) = SINGLE[name]
+    arrs = _single(case)
+    args = arrs[:5] + ([] if gi is None else [arrs[gi]])
+    want = plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    dev = [a.to(card, dtype) for a in args]
+    before = getattr(module, counter)
+    got, again = kernel(*dev), kernel(*dev)
+    torch.cuda.synchronize()
+    assert getattr(module, counter) == before + 2
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.equal(g, a)  # bitwise reproducible
+        assert _rel(g, w) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("name", sorted(SINGLE))
+def test_single_stat_wrappers_refuse_what_the_kernel_does_not_take(card, name):
+    kernel, _, gi, (module, counter) = SINGLE[name]
+    arrs = [a.to(card) for a in _single((37, 5, 2, 3, True))]
+    args = arrs[:5] + ([] if gi is None else [arrs[gi]])
+    before = getattr(module, counter)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        kernel(*(a.half() for a in args))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(args[0].T.contiguous().T, *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        kernel(args[0], args[1][:-1], *args[2:])
+    with pytest.raises(ValueError, match="float64 on"):
+        kernel(*args[:2], args[2].cpu(), *args[3:])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(*(a.cpu() for a in args))
+    if gi is not None:
+        with pytest.raises(ValueError, match="shape"):
+            kernel(*args[:5], args[5][:, :-1])
+    assert getattr(module, counter) == before
+
+
+@pytest.mark.parametrize("stat", ("psi1", "psi2"))
+def test_single_stat_ops_route_cuda_tensors_to_the_kernels(card, stat):
+    """The GP-LVM facade's mix (float64 mu and Z; float32 S, variance and
+    lengthscale): forward and reverse through the kernels, each cotangent
+    in its own input's dtype, against the plain reverse pass."""
+    arrs = _single((300, 33, 2, 3, True))
+    g = arrs[5] if stat == "psi1" else arrs[6]
+    op = ops.psi1 if stat == "psi1" else ops.psi2
+    fwd = (p1, "LAUNCHES") if stat == "psi1" else (p2, "LAUNCHES")
+    bwd = "PSI1_BWD_LAUNCHES" if stat == "psi1" else "PSI2_BWD_LAUNCHES"
+    plain = ss.psi1_vjp_plain if stat == "psi1" else ss.psi2_vjp_plain
+    mu, S, Z, v, l = arrs[:5]
+    want = plain(mu, S.float().double(), Z, v.float().double(), l.float().double(), g)
+    leaves = [a.to(card).requires_grad_(True) for a in
+              (mu, S.float(), Z, v.float(), l.float())]
+    before = (getattr(*fwd), getattr(ss, bwd))
+    out = op(*leaves)
+    grads = torch.autograd.grad((out * g.to(card)).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (getattr(*fwd), getattr(ss, bwd)) == (before[0] + 1, before[1] + 1)
+    for a, leaf, w in zip(grads, leaves, want):
+        assert a.dtype == leaf.dtype
+        assert _rel(a, w) <= TOL[leaf.dtype]

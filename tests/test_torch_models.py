@@ -81,7 +81,7 @@ def _assert_params_close(got: dict, want, tol: float):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtypes", ("float64", "mixed"))
-@pytest.mark.parametrize("backend", ("fused", "jnp"))
+@pytest.mark.parametrize("backend", ("fused", "jnp", "pallas"))
 def test_gplvm_loss_and_grads_match_jax(backend, dtypes):
     Y = _lvm_data()
     p_np = _lvm_params(Y, f64=dtypes == "float64")

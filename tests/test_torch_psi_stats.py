@@ -57,7 +57,7 @@ def test_exact_stats_match_jax(backend):
     _assert_stats(got, want)
 
 
-@pytest.mark.parametrize("backend", ("jnp", "fused"))
+@pytest.mark.parametrize("backend", ("jnp", "fused", "pallas"))
 def test_expected_stats_match_jax(backend):
     a, k = _data()
     names = ("X", "S", "Y", "Z")
