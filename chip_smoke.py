@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving, training and data-parallel paths
+on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -9,9 +10,9 @@ Phases (any failure exits non-zero and prints no result):
    `nvidia-smi --query-gpu=name,power.limit` for the card.
 2. Build: every kernel library (the fused forward and reverse
    psi-statistics kernels B1 and B2, and the single-statistic kernels B3
-   psi2, B4 its reverse, B5 psi1, B6 its reverse) is compiled from
+   psi2, B4 its reverse, B5 psi1, B6 its reverse, B7 K_fu) is compiled from
    `src/repro_torch/kernels/csrc` (one nvcc per source, all at once) into
-   `build/`.
+   `build/`. PyTorch's float32 matrix products must not use TF32.
 3. Kernels vs plain versions on the card, at the paper's shape
    (N = 1,000,003, M = 100, Q = 1, D = 3) and at N = 100,003, M = 256,
    Q = 4, D = 5, each with S > 0 (GP-LVM) and S = 0 (SGPR): the forward
@@ -21,7 +22,9 @@ Phases (any failure exits non-zero and prints no result):
    version, relative to max|plain| per output; two kernel runs bitwise
    equal. The same for B3-B6 at both shapes with S > 0 (`psi2_plain`,
    `psi2_vjp_plain`, `psi1_plain`, `psi1_vjp_plain`, random output
-   cotangents), and for B5 and B6 also at S = 0.
+   cotangents), and for B5 and B6 also at S = 0; B7 against `kfu_plain`
+   and K_fu's reverse pass (B6 at S = 0, `kfu_bwd_cuda`) against
+   `kfu_vjp_plain` at both shapes.
 4. Serving at the paper's §4 scale (N = 1e6, M = 100, Q = 1, D = 3; data
    and parameters from a numpy seed): a GP-LVM state from q(X) and an SGPR
    state from (X, Y), built through `suff_stats(backend="fused")`, served
@@ -56,21 +59,44 @@ Phases (any failure exits non-zero and prints no result):
    backend="fused": held on the well-conditioned grid (loss within 1e-10,
    each gradient leaf within 1e-8, every leaf float64), printed from the
    init.
-7. Times, with the card's name and power limit: each kernel and its plain
+7. The SGPR through backend="pallas": a `SparseGPRegression(
+   backend="pallas")` fitted from its own init to the SGPR data at the
+   paper's shape, 10 Adam steps in float32 and float64. Losses finite and
+   the last below the first; each step launches B7 and B6 once and B1-B5
+   never; the float32 fit makes at least 80 % of the float64 fit's
+   descent; each fitted model is served and refitted. In float64 on the
+   grid, the loss within 1e-10 of backend="fused" and each gradient leaf
+   within 1e-8 (printed, not held, from the init).
+8. The data-parallel path (`mesh=`) on the one card: two spawned ranks,
+   both on cuda:0, in a gloo group (NCCL refuses two ranks on one card).
+   Each evaluates `sgpr_loss_dist` through "pallas" at the paper's shape
+   in float64 on the grid, held to the single-process loss (1e-10) and
+   gradients (1e-8, the same bits on both ranks); then 3 Adam steps of the
+   `mesh=` facade, after which the global parameters are bitwise equal on
+   both ranks. Then one rank in an NCCL group fits one step. Every child
+   is joined with a timeout; a child's failure fails the run.
+9. Times, with the card's name and power limit: each kernel and its plain
    version at the paper's shape (median of CUDA-event timings), the
-   kernels' bounds, predict p50 at B = 1 and B = 256, and the median
-   training-step time after the first step for every model and dtype.
+   kernels' bounds, the SGPR state build through "pallas" and "fused",
+   predict p50 at B = 1 and B = 256, and the median training-step time
+   after the first step for every model and dtype (the two-rank step is
+   printed by phase 8), with one profiled step each: device time by
+   kernel and the device's idle share.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import datetime
 import inspect
 import json
+import multiprocessing
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -79,17 +105,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import inference  # noqa: E402
+from repro_torch.core import distributed, inference  # noqa: E402
 from repro_torch.gp import (BayesianGPLVM, ExactBatch, ExpectedBatch,  # noqa: E402
                             SparseGPRegression, get, suff_stats)
 from repro_torch.optim import AdamConfig, adam_init, adam_update  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import kfu as kf  # noqa: E402
 from repro_torch.kernels import psi1 as p1  # noqa: E402
 from repro_torch.kernels import psi2 as p2  # noqa: E402
 from repro_torch.kernels import suffstats as ss  # noqa: E402
-from repro_torch.optim.adam import tree_map  # noqa: E402
+from repro_torch.optim.adam import flatten, tree_map  # noqa: E402
 from repro_torch.serve import GPServer, build_state  # noqa: E402
 
 SEED = 0
@@ -163,10 +191,18 @@ SINGLE_ROUTES = {
                  "replaces": "src/repro/kernels/psi1.py:75", "library_ms": None},
     "psi1_bwd": {"route": "cuda", "source": f"{CSRC}/psi1_bwd.cu",
                  "replaces": "src/repro/kernels/suffstats.py:590", "library_ms": None},
+    "kfu_fwd": {"route": "cuda", "source": f"{CSRC}/kfu_fwd.cu",
+                "replaces": "src/repro/kernels/kfu.py:74", "library_ms": None},
 }
+KFU_BWD_OUTPUTS = ("dX", "dZ", "dvariance", "dlengthscale")
 COUNTERS = {"suffstats_fwd": (ss, "LAUNCHES"), "suffstats_bwd": (ss, "BWD_LAUNCHES"),
             "psi2_fwd": (p2, "LAUNCHES"), "psi2_bwd": (ss, "PSI2_BWD_LAUNCHES"),
-            "psi1_fwd": (p1, "LAUNCHES"), "psi1_bwd": (ss, "PSI1_BWD_LAUNCHES")}
+            "psi1_fwd": (p1, "LAUNCHES"), "psi1_bwd": (ss, "PSI1_BWD_LAUNCHES"),
+            "kfu_fwd": (kf, "LAUNCHES")}
+# the data-parallel phase: ranks, Adam steps, and how long a child may take
+DP_WORLD = 2
+DP_STEPS = 3
+DP_TIMEOUT_S = 300
 
 
 def counts() -> dict:
@@ -306,11 +342,11 @@ def _as_tuple(x) -> tuple:
 
 
 def phase_single_kernels() -> dict:
-    """The single-statistic kernels B3-B6, each against its plain version
-    on every shape: S > 0 for all four, S = 0 also for psi1 and its reverse
-    (the next slice's K_fu reverse). Returns the max abs error per (kernel,
-    dtype) at the paper's shape."""
-    errs = {(name, dt): 0.0 for name in SINGLE_ROUTES for dt in TOL}
+    """The single-statistic kernels B3-B7, each against its plain version
+    on every shape: S > 0 for B3-B6, S = 0 also for psi1 and its reverse;
+    B7 (K_fu) and its reverse pass (B6 at S = 0). Returns the max abs error
+    per (kernel, dtype) at the paper's shape."""
+    errs = {}
     for N, M, Q, D in KERNEL_SHAPES:
         for pos_S in (True, False):
             mu, S, _, Z, v, l = kernel_inputs(N, M, Q, D, pos_S)
@@ -322,6 +358,11 @@ def phase_single_kernels() -> dict:
                 cases["psi2_fwd"] = (p2.psi2_cuda, p2.psi2_plain, x, ("psi2",))
                 cases["psi2_bwd"] = (ss.psi2_bwd_cuda, ss.psi2_vjp_plain,
                                      x + (bwd_cotangents(M, D)[0],), SINGLE_BWD_OUTPUTS)
+            else:
+                xk = (mu, Z, v, l)
+                cases["kfu_fwd"] = (kf.kfu_cuda, kf.kfu_plain, xk, ("kfu",))
+                cases["kfu_bwd"] = (ss.kfu_bwd_cuda, ss.kfu_vjp_plain,
+                                    xk + (random_g(N, M),), KFU_BWD_OUTPUTS)
             for name, (kernel, plain, args, outputs) in cases.items():
                 want = _as_tuple(plain(*args))
                 for dt, tol in TOL.items():
@@ -337,7 +378,7 @@ def phase_single_kernels() -> dict:
                         check(r <= tol, f"{name} {out} {dt} rel err {r:.3e} > {tol:g}")
                         check(torch.equal(g, a), f"{name} {out} {dt}: two runs differ")
                         if (N, M, Q, D) == KERNEL_SHAPES[0]:
-                            errs[name, dt] = max(errs[name, dt],
+                            errs[name, dt] = max(errs.get((name, dt), 0.0),
                                                  float((g.double() - w).abs().max()))
                 del want
     return errs
@@ -574,6 +615,11 @@ def serve_fitted(models: dict, dtype: torch.dtype) -> None:
             check(history[-1] <= history[0], f"{key}: refit raised the loss {history}")
             mean, _ = srv.predict(key, Xt)
             check(bool(torch.isfinite(mean).all()), f"{key}: refitted answer not finite")
+
+
+def _named(tree: dict) -> dict:
+    """path -> leaf of a parameter tree ("kern/log_variance", "Z", ...)."""
+    return dict(zip(*flatten(tree)))
 
 
 def _leaves(params: dict) -> dict:
@@ -946,8 +992,8 @@ def phase_pallas(data: dict) -> dict:
             f"launches {fit}")
         check(all(fit[k] == TRAIN_STEPS for k in PALLAS_KERNELS),
               f"{name}: expected one launch of each of B3-B6 per step, got {fit}")
-        check(fit["suffstats_fwd"] == fit["suffstats_bwd"] == 0,
-              f"{name}: the pallas path launched the fused kernels")
+        check(fit["suffstats_fwd"] == fit["suffstats_bwd"] == fit["kfu_fwd"] == 0,
+              f"{name}: the pallas path launched the fused kernels or B7")
         h = model.history
         log(f"[pallas] {name} gplvm: loss {h[0]:.6f} -> {h[-1]:.6f} over {len(h)} steps")
         check(len(h) == TRAIN_STEPS and all(np.isfinite(h)), f"{name} pallas: losses {h}")
@@ -1013,7 +1059,220 @@ def compare_backends(data: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: times and the bounds
+# phase 7: the SGPR through backend="pallas" (kernel B7, B6 at S = 0)
+# ---------------------------------------------------------------------------
+
+SGPR_PALLAS_KERNELS = ("kfu_fwd", "psi1_bwd")
+
+
+def phase_sgpr_pallas(data: dict) -> dict:
+    """The SGPR's pallas path as a user drives it: a SparseGPRegression
+    through backend="pallas" fitted from its own init, TRAIN_STEPS Adam
+    steps per dtype, then registered and served. Every counter is set to 0
+    just before each dtype's fit and read just after the fit and after
+    serving. Returns the fitted models and the main path's launches per
+    dtype."""
+    result = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        zero_counts()
+        t0 = time.perf_counter()
+        model = SparseGPRegression(M=PAPER[1], backend="pallas", device="cuda").fit(
+            _as(data["X"], dtype), _as(data["Y"], dtype), steps=TRAIN_STEPS, log_every=1)
+        torch.cuda.synchronize()
+        fit = counts()
+        log(f"[sgpr-pallas] {name}: {TRAIN_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s; launches {fit}")
+        check(all(fit[k] == (TRAIN_STEPS if k in SGPR_PALLAS_KERNELS else 0) for k in fit),
+              f"{name}: expected one launch of B7 and of B6 per step and no other, "
+              f"got {fit}")
+        h = model.history
+        log(f"[sgpr-pallas] {name} sgpr: loss {h[0]:.6f} -> {h[-1]:.6f} over {len(h)} steps")
+        check(len(h) == TRAIN_STEPS and all(np.isfinite(h)), f"{name} sgpr pallas: losses {h}")
+        check(h[-1] < h[0], f"{name} sgpr pallas: the loss did not decrease")
+        serve_fitted({"sgpr_pallas": model}, dtype)
+        torch.cuda.synchronize()
+        served = counts()
+        want = {k: fit[k] + (k == "kfu_fwd") for k in fit}
+        check(served == want, f"{name}: serving the fitted model should add one B7 "
+              f"launch, got {served} after {fit}")
+        result[dtype] = {"model": model, "launches": served}
+    compare_dtypes({dt: {"sgpr_pallas": r["model"]} for dt, r in result.items()})
+    compare_sgpr_backends(data)
+    return result
+
+
+def compare_sgpr_backends(data: dict) -> None:
+    """The float64 SGPR through backend="pallas" against the same model
+    through backend="fused", loss and gradients at the same parameters:
+    from the facade's own init (printed, not held) and on the data's grid
+    of inducing points, 0.76 lengthscales apart, with every leaf in float64
+    (loss within TOL, each gradient leaf within BACKEND_GRAD_TOL). Also
+    prints whether the cotangent of K_fu reaches the op contiguous (else
+    the op copies (N, M) once per step)."""
+    X, Y = _as(data["X"], torch.float64), _as(data["Y"], torch.float64)
+    models = {b: SparseGPRegression(M=PAPER[1], backend=b, device="cuda")
+              for b in ("pallas", "fused")}
+    p_init = tree_map(lambda t: t.double(), models["fused"].init_params(X, Y))
+    p_grid = convert.params_from_numpy(data["params"], device="cuda", dtype=torch.float64)
+    layouts = []
+    real = ops._backward
+
+    def spy(ctx, cotangents, plain, kernel):
+        layouts.append((tuple(cotangents[0].shape), cotangents[0].is_contiguous()))
+        return real(ctx, cotangents, plain, kernel)
+
+    failed = []
+    for what, params, hold in (("from its init", p_init, False),
+                               ("on the grid", p_grid, True)):
+        res = {}
+        for backend, model in models.items():
+            ops._backward = spy
+            try:
+                res[backend] = inference.value_and_grad(model._loss, params, (X, Y))
+            finally:
+                ops._backward = real
+        loss_err = abs(float(res["pallas"][0]) - float(res["fused"][0])) / abs(float(res["fused"][0]))
+        held = f"tol {TOL[torch.float64]:g}" if hold else "not held"
+        log(f"[sgpr-pallas] float64 sgpr {what}: loss pallas {float(res['pallas'][0]):.12f}, "
+            f"fused {float(res['fused'][0]):.12f}, rel err {loss_err:.3e} ({held})")
+        if hold and loss_err > TOL[torch.float64]:
+            failed.append(f"loss {what} {loss_err:.3e}")
+        for name, g in _named(res["pallas"][1]).items():
+            err = rel_err(g, _named(res["fused"][1])[name])
+            log(f"[sgpr-pallas]   gradient {name} ({str(g.dtype)[6:]}): rel err {err:.3e} "
+                f"({f'tol {BACKEND_GRAD_TOL:g}' if hold else 'not held'})")
+            if hold and err > BACKEND_GRAD_TOL:
+                failed.append(f"gradient {name} {what} {err:.3e}")
+    log(f"[sgpr-pallas] the ops' output cotangents (shape, contiguous): {sorted(set(layouts))}")
+    check(not failed, "sgpr backend='pallas' vs 'fused': " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the data-parallel path (mesh=) on the one card
+# ---------------------------------------------------------------------------
+
+def _grid_problem() -> tuple:
+    """The SGPR data (X, Y) in float64 on the card and the grid parameters,
+    rebuilt from the seed (in each rank as in the parent)."""
+    data = serving_data(PAPER[0], PAPER[1])
+    params = convert.params_from_numpy(data["params"], device="cuda", dtype=torch.float64)
+    return _as(data["X"], torch.float64), _as(data["Y"], torch.float64), params
+
+
+def _cpu(tree):
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def _dp_rank(rank: int, world: int, backend: str, store: str, out: str,
+             steps: int) -> None:
+    """One rank of the data-parallel phase (a spawned child, on cuda:0):
+    with W > 1 the loss and its gradients at the grid parameters; then
+    `steps` Adam steps of the `mesh=` facade from them and the median
+    step time; every result saved to `out`."""
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = distributed.make_gp_mesh()
+        X, Y, params = _grid_problem()
+        res = {}
+        if world > 1:
+            local = (distributed.shard(X, mesh), distributed.shard(Y, mesh))
+            loss, grads = inference.value_and_grad(
+                distributed.sgpr_loss_dist(mesh, backend="pallas"),
+                distributed.shard_gp_params(params, mesh), local)
+            res["loss"], res["grads"] = float(loss), _cpu(grads)
+        zero_counts()
+        model = SparseGPRegression(M=PAPER[1], backend="pallas", mesh=mesh, device="cuda")
+        model.fit(X, Y, steps=steps, log_every=1, params=params)
+        torch.cuda.synchronize()
+        res["launches"] = counts()
+        res["history"] = model.history
+        res["params"] = _cpu(model.params)
+        res["step_ms"] = step_ms(model)
+        torch.save(res, Path(out) / f"{backend}_r{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, backend: str, steps: int, tmp: Path) -> list:
+    """Spawn `world` ranks of `_dp_rank`, join them with a timeout, fail on a
+    hang or a failed child; returns each rank's results."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, world, backend,
+                                                str(tmp / f"store_{backend}"), str(tmp), steps))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [proc for proc in procs if proc.is_alive()]
+        for proc in hung:
+            proc.kill()
+            proc.join(30)
+    check(not hung, f"{backend} W={world}: {len(hung)} ranks still running after "
+          f"{DP_TIMEOUT_S} s")
+    check(all(proc.exitcode == 0 for proc in procs),
+          f"{backend} W={world}: rank exit codes {[proc.exitcode for proc in procs]}")
+    return [torch.load(tmp / f"{backend}_r{r}.pt") for r in range(world)]
+
+
+def phase_data_parallel() -> dict:
+    """Two gloo ranks against the single process, at the grid parameters in
+    float64; then one NCCL rank. Returns the step times."""
+    X, Y, params = _grid_problem()
+    single = SparseGPRegression(M=PAPER[1], backend="pallas", device="cuda")
+    want, want_g = inference.value_and_grad(single._loss, params, (X, Y))
+    want, want_g = float(want), _named(_cpu(want_g))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        ranks = run_ranks(DP_WORLD, "gloo", DP_STEPS, tmp)
+        nccl = run_ranks(1, "nccl", 1, tmp)[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    failed = []
+    for r, res in enumerate(ranks):
+        err = abs(res["loss"] - want) / abs(want)
+        log(f"[dp] gloo W={DP_WORLD} rank {r}: loss {res['loss']:.12f} vs single process "
+            f"{want:.12f}, rel err {err:.3e} (tol {TOL[torch.float64]:g})")
+        if err > TOL[torch.float64]:
+            failed.append(f"rank {r} loss {err:.3e}")
+        for name, g in _named(res["grads"]).items():
+            err = rel_err(g, want_g[name])
+            log(f"[dp]   rank {r} gradient {name}: rel err {err:.3e} "
+                f"(tol {BACKEND_GRAD_TOL:g})")
+            if err > BACKEND_GRAD_TOL:
+                failed.append(f"rank {r} gradient {name} {err:.3e}")
+            if not torch.equal(g, _named(ranks[0]["grads"])[name]):
+                failed.append(f"rank {r} gradient {name} differs from rank 0's")
+        launches = res["launches"]
+        log(f"[dp] gloo W={DP_WORLD} rank {r}: {DP_STEPS} facade steps, losses "
+            + " ".join(f"{h:.9f}" for h in res["history"]) + f"; launches {launches}")
+        if any(launches[k] != (DP_STEPS if k in SGPR_PALLAS_KERNELS else 0)
+               for k in launches):
+            failed.append(f"rank {r} launches {launches}")
+        if not all(np.isfinite(res["history"])):
+            failed.append(f"rank {r} losses {res['history']}")
+        for path, a, b in zip(*flatten(res["params"]), flatten(ranks[0]["params"])[1]):
+            if not torch.equal(a, b):
+                failed.append(f"rank {r} parameter {path} differs from rank 0's after "
+                              f"{DP_STEPS} steps")
+    log(f"[dp] gloo W={DP_WORLD}: global parameters after {DP_STEPS} Adam steps bitwise "
+        f"equal on every rank: {not any('parameter' in f for f in failed)}")
+    log(f"[dp] nccl W=1: 1 facade step, loss {nccl['history'][0]:.12f}; launches "
+        f"{nccl['launches']}")
+    if not (len(nccl["history"]) == 1 and np.isfinite(nccl["history"][0])):
+        failed.append(f"nccl losses {nccl['history']}")
+    check(not failed, "data-parallel path: " + "; ".join(failed))
+    return {"gloo": [res["step_ms"] for res in ranks], "nccl": nccl["step_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: times and the bounds
 # ---------------------------------------------------------------------------
 
 def _bound(nbytes: int, flops: int, exps: int, dtype) -> tuple:
@@ -1104,6 +1363,15 @@ def psi1_bwd_bound_ms(N, M, Q, D, dtype) -> tuple:
     return _bound(nbytes, N * M * (10 * Q + 3), N * M, dtype)
 
 
+def kfu_bound_ms(N, M, Q, D, dtype) -> tuple:
+    """Least work of K_fu (B7): per (point, m) an exp and ~(3Q + 1) flops
+    (the exponent and the v product). Bytes: X, Z, v and l read, K_fu
+    (N, M) written once, which binds."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * (N * Q + M * Q + Q + 1 + N * M)
+    return _bound(nbytes, N * M * (3 * Q + 1), N * M, dtype)
+
+
 def step_ms(model) -> float:
     """Median wall time of one training step after the first (loss, its
     gradients through both kernels, the Adam update), from the fitted
@@ -1120,6 +1388,41 @@ def step_ms(model) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times[1:])
+
+
+def profile_step(model, what: str, top: int = 6) -> None:
+    """One training step (after an untimed one) under `torch.profiler`:
+    the device time of each kernel name (the `top` largest), their sum
+    against the step's wall time (host clock to a synchronize, inflated by
+    the profiler's own host work), and so the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    config = AdamConfig(lr=1e-2, clip_norm=None, weight_decay=0.0)
+    params, state = model.params, adam_init(model.params, config)
+
+    def step():
+        _, grads = inference.value_and_grad(model._loss, params, model._data)
+        adam_update(grads, state, params, config)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    if not by_name:
+        log(f"[profile] {what}: the profiler recorded no device time; not measured")
+        return
+    log(f"[profile] {what}: device busy {busy:.3f} ms of a {wall:.3f} ms profiled step "
+        f"({len(by_name)} kernel names; idle share {100 * (1 - busy / wall):.1f} %)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"[profile]   {ms:8.3f} ms  {name[:110]}")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1146,9 +1449,29 @@ def _time_kernel(out: dict, key, what: str, kernel, plain, bound: tuple,
         f"({bound[2]}; kernel at {100 * bound[0] / t:.1f} % of it)")
 
 
-def phase_times(trained: dict, pallas: dict) -> dict:
-    """Kernel, plain-version and training-step times; none of these
-    launches counts towards a main path."""
+def state_build_ms(data: dict, dtype: torch.dtype, backend: str, reps: int = 5) -> float:
+    """Median wall time of building the SGPR's served state from (X, Y)
+    (one statistics pass through `backend` and the O(M^3) refold), after
+    one untimed build: host clock to a synchronize."""
+    kernel = get("rbf")(1)
+    params = convert.params_from_numpy(data["params"], device="cuda", dtype=dtype)
+    X, Y = _as(data["X"], dtype), _as(data["Y"], dtype)
+    times = []
+    with torch.no_grad():
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = suff_stats(kernel, params["kern"], ExactBatch(X, Y, params["Z"]),
+                               backend=backend)
+            build_state(kernel, params, stats)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def phase_times(trained: dict, pallas: dict, sgpr: dict, data: dict) -> dict:
+    """Kernel, plain-version, state-build and training-step times; none of
+    these launches counts towards a main path."""
     N, M, Q, D = PAPER
     x64 = kernel_inputs(N, M, Q, D, True)
     g64 = bwd_cotangents(M, D)
@@ -1182,10 +1505,21 @@ def phase_times(trained: dict, pallas: dict) -> dict:
         _time_kernel(out, (dtype, "psi1_bwd"), f"psi1_bwd {shape}",
                      lambda: ss.psi1_bwd_cuda(*xs, gn), lambda: ss.psi1_vjp_plain(*xs, gn),
                      psi1_bwd_bound_ms(N, M, Q, D, dtype), reps=20)
-        models = {**trained[dtype]["models"], "gplvm pallas": pallas[dtype]["model"]}
+        xk = (x[0], *x[3:])  # (X, Z, v, l)
+        _time_kernel(out, (dtype, "kfu_fwd"), f"kfu_fwd {shape}",
+                     lambda: kf.kfu_cuda(*xk), lambda: kf.kfu_plain(*xk),
+                     kfu_bound_ms(N, M, Q, D, dtype), reps=20)
+        builds = [(b, state_build_ms(data, dtype, b))
+                  for b in ("pallas", "fused", "fused", "pallas")]
+        log(f"[time] sgpr state build {name} (N={N}, M={M}), in turns: "
+            + ", ".join(f"{b} {t:.3f} ms" for b, t in builds)
+            + " (each the median of 5 after the first)")
+        models = {**trained[dtype]["models"], "gplvm pallas": pallas[dtype]["model"],
+                  "sgpr pallas": sgpr[dtype]["model"]}
         for key, model in models.items():
             log(f"[time] training step {name} {key} (N={N}, M={M}): "
                 f"{step_ms(model):.3f} ms median of {TIMED_STEPS - 1} after the first")
+            profile_step(model, f"training step {name} {key}")
     set_counts(saved)  # timing launches are not a main path's
     return out
 
@@ -1206,6 +1540,9 @@ def main() -> int:
     try:
         card = card_line()
         log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+        log(f"[device] float32 matmul: allow_tf32 {tf32[0]}, precision {tf32[1]!r}")
+        check(tf32 == (False, "highest"), "float32 matrix products would use TF32")
         phase("build", phase_build)
         errs = phase("forward kernel vs plain", phase_kernels)
         bwd_errs = phase("reverse kernel vs plain", phase_bwd_kernels)
@@ -1214,7 +1551,9 @@ def main() -> int:
         served = phase("serving", phase_serving, data)
         trained = phase("training", phase_training, data)
         pallas = phase("pallas training", phase_pallas, data)
-        times = phase("times", phase_times, trained, pallas)
+        sgpr = phase("sgpr pallas training", phase_sgpr_pallas, data)
+        dp = phase("data parallel", phase_data_parallel)
+        times = phase("times", phase_times, trained, pallas, sgpr, data)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1229,11 +1568,18 @@ def main() -> int:
         kernels.append({"name": f"suffstats_bwd_{name}", **ROUTE_BWD,
                         "launches": trained[dtype]["launches"]["bwd"],
                         "max_abs_err": bwd_errs[dtype], **times[dtype, "bwd"]})
+        # B3-B6 from the GP-LVM's pallas path, B7 from the SGPR's
+        launches = {**pallas[dtype]["launches"],
+                    "kfu_fwd": sgpr[dtype]["launches"]["kfu_fwd"]}
         for kernel, route in SINGLE_ROUTES.items():
             kernels.append({"name": f"{kernel}_{name}", **route,
-                            "launches": pallas[dtype]["launches"][kernel],
+                            "launches": launches[kernel],
                             "max_abs_err": single_errs[kernel, dtype],
                             **times[dtype, kernel]})
+    log(f"[time] training step float64 sgpr pallas (N={PAPER[0]}, M={PAPER[1]}), mesh= "
+        f"over {DP_WORLD} gloo ranks sharing the one card: "
+        + ", ".join(f"rank {r} {t:.3f} ms" for r, t in enumerate(dp["gloo"]))
+        + f"; one NCCL rank {dp['nccl']:.3f} ms (median of {TIMED_STEPS - 1} after the first)")
     log(f"[phase] total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -16,11 +16,17 @@ under `combine` (with `subtract` as its inverse).
 (`repro_torch.kernels.ops.suffstats`: the CUDA kernel on the card, its
 plain version on the CPU; the exact path rides it with S = 0);
 `backend="pallas"` routes the expected statistics through the
-single-statistic ops `ops.psi1` and `ops.psi2` (their CUDA kernels on the
-card), with psiY = psi1^T Y as a matrix product; `backend="jnp"` keeps the
-name of the reference's plain path and computes with plain PyTorch (a
-chunked loop over N for Psi2). The exact statistics through
-`backend="pallas"` (the K_fu kernel) come with a later slice.
+single-statistic ops `ops.psi1` and `ops.psi2` and the exact ones through
+`ops.kfu` (their CUDA kernels on the card), with psiY = psi1^T Y, or
+psi2 = K_fu^T K_fu and psiY = K_fu^T Y, as matrix products outside any
+kernel, as in the reference; `backend="jnp"` keeps the name of the
+reference's plain path and computes with plain PyTorch (a chunked loop over
+N for Psi2).
+
+The matrix products run in full float32 for float32 tensors: they rely on
+PyTorch's default `torch.backends.cuda.matmul.allow_tf32 = False`, which a
+caller must not turn on (TF32 keeps ~3 digits, and the float32 bound is
+already fragile).
 """
 from __future__ import annotations
 
@@ -88,11 +94,6 @@ def _count(X: torch.Tensor) -> torch.Tensor:
 def exact_stats_rbf(kern_params, X, Y, Z, *, backend: str = "jnp",
                     bwd_backend: str = "auto") -> SuffStats:
     _check_backend(backend)
-    if backend == "pallas":
-        raise NotImplementedError(
-            "exact statistics through backend='pallas' need the K_fu kernel "
-            "(B7, kfu_pallas), which comes with a later slice of the port; "
-            "use 'fused' or 'jnp'")
     variance = _rbf_variance(kern_params)
     lengthscale = _rbf_lengthscale(kern_params)
     if backend == "fused":
@@ -103,7 +104,15 @@ def exact_stats_rbf(kern_params, X, Y, Z, *, backend: str = "jnp",
         psi2, psiY = ops.suffstats(X, torch.zeros_like(X), Y, Z, variance,
                                    lengthscale, bwd_backend=bwd_backend)
     else:
-        Kfu = ref.kfu_rbf(X, Z, variance, lengthscale)
+        if backend == "pallas":
+            # K_fu through its kernel in both directions; the two products
+            # are plain matrix products outside any kernel, as in the
+            # reference
+            from repro_torch.kernels import ops
+
+            Kfu = ops.kfu(X, Z, variance, lengthscale, bwd_backend=bwd_backend)
+        else:
+            Kfu = ref.kfu_rbf(X, Z, variance, lengthscale)
         psi2, psiY = Kfu.T @ Kfu, Kfu.T @ Y
     return SuffStats(psi0=X.shape[0] * variance, psi2=psi2, psiY=psiY,
                      yy=(Y * Y).sum(), n=_count(X))

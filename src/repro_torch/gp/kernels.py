@@ -106,8 +106,8 @@ class RBF(Kernel):
 
     stored as unconstrained log-values. Its statistics run through the
     fused kernel with backend="fused" (expected ones, and exact ones via
-    S -> 0) and, for the expected ones, through the psi1 and psi2 kernels
-    with backend="pallas".
+    S -> 0) and through the single-statistic kernels with backend="pallas"
+    (K_fu for the exact ones, psi1 and psi2 for the expected ones).
     """
 
     input_dim: int

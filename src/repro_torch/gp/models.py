@@ -9,20 +9,23 @@ The facades own the wiring: parameter init, the loss, the optimizer loop
 and the posterior/prediction epilogue. The math stays where it is —
 `core.svgp` for the bound, the kernel objects for the statistics.
 
-`backend=` routes the statistics through the fused op ("fused": expected
-statistics for the GP-LVM, exact ones for regression via S -> 0; the CUDA
-kernels on the card), the single-statistic psi1 and psi2 ops ("pallas",
-the GP-LVM only) or plain PyTorch ("jnp"); `bwd_backend=` picks the ops'
-reverse passes ("auto": the reverse kernels on the card);
-`chunk=` streams the plain statistics over N in chunks of that size.
-`device=` is where data and parameters live: the CUDA device unless
-``device="cpu"``; numpy arrays and tensors given to `fit` and `predict`
-are moved there in their own dtype.
+`mesh=` selects the paper's data-parallel path (`core.distributed`: each
+rank keeps its shard of the data and of q(X), one all-reduce of the
+sufficient statistics; the mesh comes from `distributed.make_gp_mesh()`
+over an initialized process group); `backend=` routes the statistics
+through the fused op ("fused": expected statistics for the GP-LVM, exact
+ones for regression via S -> 0; the CUDA kernels on the card), the
+single-statistic ops ("pallas": K_fu for regression, psi1 and psi2 for the
+GP-LVM) or plain PyTorch ("jnp"); `bwd_backend=` picks the ops' reverse
+passes ("auto": the reverse kernels on the card); `chunk=` streams the
+plain statistics over N in chunks of that size. `device=` is where data and
+parameters live: the CUDA device unless ``device="cpu"``; numpy arrays and
+tensors given to `fit` and `predict` are moved there in their own dtype.
+With `mesh=`, `fit`, `posterior`, `predict` and `export_state` take the
+full arrays, as without, and every rank returns the same answers.
 
-Not ported yet, each raising `NotImplementedError`: `mesh=` (the
-data-parallel path of `core/distributed.py`), `chunk="auto"` (the
-autotuner), `SparseGPRegression(backend="pallas")` (the K_fu kernel, B7)
-and `regression(backend="temporal")`.
+Not ported yet, each raising `NotImplementedError`: `chunk="auto"` (the
+autotuner) and `regression(backend="temporal")`.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core import gplvm, inference, svgp
+from repro_torch.core import distributed, gplvm, inference, svgp
 from repro_torch.gp.kernels import RBF, Kernel, default_rbf
 from repro_torch.gp.stats import ExactBatch, suff_stats
 
@@ -53,20 +56,18 @@ def _pick_inducing(X: torch.Tensor, M: int) -> torch.Tensor:
 
 
 class _CollapsedGPModel:
-    """Shared facade plumbing: kernel/backend/chunk/device state, the
-    optimizer loop and the posterior statistics pass."""
+    """Shared facade plumbing: kernel/mesh/backend/chunk/device state, the
+    optimizer loop and the (possibly distributed) posterior statistics
+    pass."""
 
     def __init__(self, kernel: Optional[Kernel], M: int, *, mesh=None,
                  backend: str = "jnp", chunk: Optional[Union[int, str]] = None,
                  bwd_backend: str = "auto",
                  device: str | torch.device = _device.DEFAULT_DEVICE):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the data-parallel path) needs core/distributed.py, "
-                "which comes with a later slice of the port")
         self.device = _device.resolve(device)
         self.kernel = kernel
         self.M = int(M)
+        self.mesh = mesh
         self.backend = backend
         self.bwd_backend = bwd_backend
         if chunk is None or chunk == "auto":
@@ -78,13 +79,28 @@ class _CollapsedGPModel:
             self.chunk = int(chunk)
         self.params: Optional[Params] = None
         self.history: list = []
-        self._data: tuple = ()
+        self._data: tuple = ()  # this rank's shard with mesh=
+        self._n = 0  # datapoints fitted, over every rank
         self._posterior_cache: Optional[svgp.Posterior] = None  # cleared by fit
         self._stats_value_cache = None  # fitted-data SuffStats, cleared by fit
 
     def _tensor(self, a) -> torch.Tensor:
         """`a` on the model's device, in its own dtype."""
         return torch.as_tensor(a, device=self.device)
+
+    def _knobs(self) -> dict:
+        return {"kernel": self.kernel, "backend": self.backend,
+                "chunk": self.chunk, "bwd_backend": self.bwd_backend}
+
+    def _place(self, params: Params, *data: torch.Tensor) -> Params:
+        """Keep the data to fit; with `mesh=`, this rank's shard of it, and
+        the params placed by `distributed.shard_gp_params`."""
+        self._n = data[0].shape[0]
+        if self.mesh is not None:
+            params = distributed.shard_gp_params(params, self.mesh)
+            data = tuple(distributed.shard(a, self.mesh) for a in data)
+        self._data = data
+        return params
 
     # -- subclass hooks ----------------------------------------------------
     def _loss(self, params: Params, *data) -> torch.Tensor:
@@ -149,8 +165,7 @@ class _CollapsedGPModel:
     def elbo(self) -> float:
         """Evidence lower bound (total, not per-datapoint) on the training data."""
         self._require_fitted()
-        n = self._data[0].shape[0]
-        return float(-self._loss(self.params, *self._data) * n)
+        return float(-self._loss(self.params, *self._data) * self._n)
 
     @torch.no_grad()
     def predict(self, Xt) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -169,12 +184,15 @@ class SparseGPRegression(_CollapsedGPModel):
       kernel: a `repro_torch.gp.kernels.Kernel`; default RBF (input dim
         inferred).
       M: number of inducing points (initialized as a subset of X).
-      backend: "jnp" | "fused" statistics path ("fused" rides the fused
-        statistics kernels with S -> 0 in both directions); "pallas" (the
-        K_fu kernel, B7) comes with a later slice of the port.
-      chunk: stream the plain statistics in chunks of this size; None = one
-        shot.
-      bwd_backend: "auto" | "pallas" | "jnp" — the fused op's reverse pass.
+      mesh: optional `DeviceMesh` (`distributed.make_gp_mesh()`): each rank
+        keeps its shard of (X, Y) and the statistics merge with one
+        all-reduce (the paper's MPI scheme); None = single-process math.
+      backend: "jnp" | "pallas" | "fused" statistics path ("pallas" is the
+        K_fu kernel with the two products as matrix products; "fused" rides
+        the fused statistics kernels with S -> 0; both kernelized in both
+        directions).
+      chunk: stream the statistics in chunks of this size; None = one shot.
+      bwd_backend: "auto" | "pallas" | "jnp" — the ops' reverse passes.
       device: where data and parameters live ("cuda" by default).
     """
 
@@ -183,15 +201,13 @@ class SparseGPRegression(_CollapsedGPModel):
                  chunk: Optional[Union[int, str]] = None,
                  bwd_backend: str = "auto",
                  device: str | torch.device = _device.DEFAULT_DEVICE):
-        if backend == "pallas":
-            raise NotImplementedError(
-                "SparseGPRegression(backend='pallas') needs the K_fu kernel "
-                "(B7, kfu_pallas), which comes with a later slice of the "
-                "port; use 'fused' or 'jnp'")
         super().__init__(kernel, M, mesh=mesh, backend=backend, chunk=chunk,
                          bwd_backend=bwd_backend, device=device)
 
     def _stats(self, params: Params, X: torch.Tensor, Y: torch.Tensor):
+        if self.mesh is not None:
+            return distributed.sgpr_stats_dist(self.mesh, **self._knobs())(
+                params, X, Y)
         kern = default_rbf(self.kernel, params["Z"].shape[1])
         return suff_stats(kern, params["kern"], ExactBatch(X, Y, params["Z"]),
                           backend=self.backend, chunk=self.chunk,
@@ -223,8 +239,8 @@ class SparseGPRegression(_CollapsedGPModel):
             params = self.init_params(X, Y)
         elif self.kernel is None:
             self.kernel = RBF(params["Z"].shape[1])
-        self._data = (X, Y)
-        self.params = self._optimize(params, (X, Y), optimizer=optimizer,
+        params = self._place(params, X, Y)
+        self.params = self._optimize(params, self._data, optimizer=optimizer,
                                      steps=steps, lr=lr, log_every=log_every)
         return self
 
@@ -236,10 +252,12 @@ class BayesianGPLVM(_CollapsedGPModel):
       kernel: kernel with closed-form psi statistics; default RBF(Q).
       Q: latent dimensionality.
       M: number of inducing points.
-      backend / chunk / bwd_backend / device: as for SparseGPRegression;
-        backend="fused" is the fused statistics op and backend="pallas" the
-        psi1 and psi2 ops, each differentiable through its hand-derived
-        reverse pass (the reverse kernels on the card).
+      mesh / backend / chunk / bwd_backend / device: as for
+        SparseGPRegression; backend="fused" is the fused statistics op and
+        backend="pallas" the psi1 and psi2 ops, each differentiable through
+        its hand-derived reverse pass (the reverse kernels on the card).
+        With `mesh=` the PCA init runs on the full Y, then each rank keeps
+        its shard of Y and q(X).
     """
 
     def __init__(self, kernel: Optional[Kernel] = None, M: int = 100,
@@ -257,13 +275,16 @@ class BayesianGPLVM(_CollapsedGPModel):
         self.Q = kernel.input_dim if kernel is not None else (Q if Q is not None else 1)
 
     def _loss(self, params: Params, Y: torch.Tensor) -> torch.Tensor:
-        return gplvm.loss(params, Y, kernel=self.kernel, backend=self.backend,
-                          chunk=self.chunk, bwd_backend=self.bwd_backend)
+        if self.mesh is not None:
+            return distributed.gplvm_loss_dist(self.mesh, **self._knobs())(
+                params, Y)
+        return gplvm.loss(params, Y, **self._knobs())
 
     def _stats(self, params: Params, Y: torch.Tensor):
-        return gplvm.local_stats(params, Y, kernel=self.kernel,
-                                 backend=self.backend, chunk=self.chunk,
-                                 bwd_backend=self.bwd_backend)
+        if self.mesh is not None:
+            return distributed.gplvm_stats_dist(self.mesh, **self._knobs())(
+                params, Y)
+        return gplvm.local_stats(params, Y, **self._knobs())
 
     def init_params(self, Y, *, init_X=None,
                     generator: Optional[torch.Generator] = None) -> Params:
@@ -287,13 +308,14 @@ class BayesianGPLVM(_CollapsedGPModel):
             self.kernel = RBF(self.Q)
         if params is None:
             params = self.init_params(Y, init_X=init_X, generator=generator)
-        self._data = (Y,)
-        self.params = self._optimize(params, (Y,), optimizer=optimizer,
+        params = self._place(params, Y)
+        self.params = self._optimize(params, self._data, optimizer=optimizer,
                                      steps=steps, lr=lr, log_every=log_every)
         return self
 
     def latent(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Variational posterior over the latents: (q_mu, q_S)."""
+        """Variational posterior over the latents: (q_mu, q_S); with
+        `mesh=`, this rank's shard of them."""
         self._require_fitted()
         return self.params["q_mu"], torch.exp(self.params["q_logS"])
 
@@ -310,7 +332,7 @@ def regression(kernel: Optional[Kernel] = None, *, backend: str = "collapsed",
     """GP regression facade picked by compute backend.
 
     backend="collapsed" (default) -> `SparseGPRegression`; kwargs = (M,
-    backend, chunk, bwd_backend, device), with the statistics-path knob
+    mesh, backend, chunk, bwd_backend, device), with the statistics-path knob
     spelled `stats_backend=` here to avoid clashing. backend="temporal"
     (the state-space GP) comes with a later slice of the port.
     """

@@ -4,15 +4,16 @@ Counterpart of `repro.gp.stats`: one entry point, `suff_stats(kernel,
 params, batch, backend=..., chunk=...)`. The batch type selects exact
 (deterministic X) vs expected (Gaussian q(X)) statistics, the kernel
 supplies the math, and `backend` routes the hot path through the fused op
-("fused"), the single-statistic ops ("pallas", expected statistics only)
-or plain PyTorch ("jnp").
+("fused"), the single-statistic ops ("pallas": K_fu for the exact
+statistics, psi1 and psi2 for the expected ones) or plain PyTorch ("jnp").
 
 `chunk=` streams the N datapoints in chunks of that size and combines the
 per-chunk `SuffStats` through the monoid: a Python loop over the full
 chunks, then one explicit tail chunk (no padding), so peak live memory is
 O(chunk * M + M^2) regardless of N. Each chunk of the plain and "pallas"
 backends is checkpointed, as the reference's scan is (a "pallas" chunk's
-psi1^T Y product keeps psi1 (chunk, M) wherever Y needs a gradient), so a
+psi1^T Y or K_fu^T K_fu and K_fu^T Y products keep their (chunk, M)
+operand for the backward pass), so a
 backward pass through the loop also stays at O(chunk * M + M^2) beyond the
 per-point inputs; the fused op saves only its inputs already and is not.
 """

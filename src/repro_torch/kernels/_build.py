@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES: Dict[str, Path] = {
     name: CSRC / f"{name}.cu"
     for name in ("suffstats_fwd", "suffstats_bwd", "psi2_fwd", "psi2_bwd",
-                 "psi1_fwd", "psi1_bwd")
+                 "psi1_fwd", "psi1_bwd", "kfu_fwd")
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

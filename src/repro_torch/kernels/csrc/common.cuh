@@ -1,8 +1,9 @@
 // Shared by the psi-statistics kernels (suffstats_fwd.cu, suffstats_bwd.cu,
-// psi2_fwd.cu, psi2_bwd.cu, psi1_fwd.cu, psi1_bwd.cu): the psi2 tile layout,
-// the per-point staging of the psi2 exponent's terms, the psi2 partial-sum
-// kernel of the two forwards, and the fixed-order sum of per-block partials
-// that keeps every kernel free of atomics and bitwise repeatable.
+// psi2_fwd.cu, psi2_bwd.cu, psi1_fwd.cu, psi1_bwd.cu, kfu_fwd.cu): the psi2
+// tile layout, the per-point staging of the psi2 exponent's terms, the psi2
+// partial-sum kernel of the two forwards, the (N, M) cross-statistic kernel
+// of psi1 and K_fu, and the fixed-order sum of per-block partials that keeps
+// every kernel free of atomics and bitwise repeatable.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -270,6 +271,85 @@ cudaError_t psi2_partials(const T* mu, const T* S, const T* Z, const T* l2,
     case 4: launch_psi2<T, 4>(grid, smem, stream, mu, S, Z, l2, part, N, M, Q, P); break;
     default: launch_psi2<T, 0>(grid, smem, stream, mu, S, Z, l2, part, N, M, Q, P);
   }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the (N, M) cross statistics: psi1 (psi1_fwd.cu) and K_fu (kfu_fwd.cu)
+// ---------------------------------------------------------------------------
+
+constexpr int kCrossPts = 64;  // datapoints per block
+
+// out[n, m] = v exp(lg_n - 1/2 sum_q (x_nq - z_mq)^2 b_nq) for a run of
+// kCrossPts points (grid.x) and a tile of `cols` inducing points (grid.y).
+// kS (psi1): b_nq = 1 / (l2_q + S_nq) and lg_n = -1/2 sum_q log1p(S_nq / l2_q),
+// staged per point; !kS (K_fu): b_q = 1 / l2_q and lg = 0, S is not read.
+// Each block stages its Z tile and points in shared memory, then its threads
+// walk the tile's outputs in row-major order, so neighbouring threads store
+// neighbouring addresses (with cols == M a block's outputs are one
+// contiguous run); v multiplies in the kernel.
+template <typename T, bool kS>
+__global__ void __launch_bounds__(kThreads)
+cross_kernel(const T* __restrict__ x, const T* __restrict__ S,
+             const T* __restrict__ Z, const T* __restrict__ l2,
+             const T* __restrict__ variance, T* __restrict__ out, int N, int M,
+             int Q, int cols) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_z = reinterpret_cast<T*>(smem_raw);        // [cols][Q]
+  T* s_x = s_z + static_cast<size_t>(cols) * Q;   // [kCrossPts][Q]
+  T* s_b = s_x + kCrossPts * Q;                   // kS: [kCrossPts][Q]; else [Q]
+  T* s_lg = s_b + (kS ? kCrossPts * Q : Q);       // kS: [kCrossPts]
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kCrossPts;
+  const int m0 = blockIdx.y * cols;
+  const int pts = min(kCrossPts, N - n0);
+  const int width = min(cols, M - m0);
+  for (int i = tid; i < width * Q; i += kThreads)
+    s_z[i] = Z[static_cast<size_t>(m0) * Q + i];
+  if constexpr (kS) {
+    if (tid < pts) {
+      const size_t n = static_cast<size_t>(n0 + tid);
+      T lg = T(0);
+      for (int q = 0; q < Q; ++q) {
+        const T s = S[n * Q + q];
+        const T l2q = l2[q];
+        s_x[tid * Q + q] = x[n * Q + q];
+        s_b[tid * Q + q] = T(1) / (l2q + s);
+        lg += log1p_t(s / l2q);
+      }
+      s_lg[tid] = T(-0.5) * lg;
+    }
+  } else {
+    for (int i = tid; i < pts * Q; i += kThreads)
+      s_x[i] = x[static_cast<size_t>(n0) * Q + i];
+    if (tid < Q) s_b[tid] = T(1) / l2[tid];
+  }
+  __syncthreads();
+
+  const T v = *variance;
+  for (int i = tid; i < pts * width; i += kThreads) {
+    const int p = i / width;
+    const int c = i - p * width;
+    T e = T(0);
+    if constexpr (kS) e = s_lg[p];
+    for (int q = 0; q < Q; ++q) {
+      const T d = s_x[p * Q + q] - s_z[c * Q + q];
+      e -= T(0.5) * d * d * s_b[kS ? p * Q + q : q];
+    }
+    out[static_cast<size_t>(n0 + p) * M + m0 + c] = v * exp_t(e);
+  }
+}
+
+template <typename T, bool kS>
+cudaError_t cross_fwd(const T* x, const T* S, const T* Z, const T* l2,
+                      const T* variance, T* out, int N, int M, int Q, int cols,
+                      cudaStream_t stream) {
+  const dim3 grid((N + kCrossPts - 1) / kCrossPts, (M + cols - 1) / cols);
+  const size_t smem = sizeof(T) * (static_cast<size_t>(cols) * Q + kCrossPts * Q
+                                   + (kS ? kCrossPts * Q + kCrossPts : Q));
+  cross_kernel<T, kS><<<grid, kThreads, smem, stream>>>(x, S, Z, l2, variance, out,
+                                                        N, M, Q, cols);
   return cudaGetLastError();
 }
 

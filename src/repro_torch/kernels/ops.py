@@ -1,30 +1,33 @@
 """The differentiable statistics ops, dispatched by device.
 
 Counterpart of `repro.kernels.ops`: the fused `suffstats` op and the
-single-statistic ops `psi1` and `psi2`. Each forward sends a CUDA tensor
-to its hand-written kernel (`suffstats.suffstats_cuda`, `psi1.psi1_cuda`,
-`psi2.psi2_cuda`) and a CPU tensor to the plain PyTorch version, for no
-other reason than that it lies on the CPU. The backward is picked by
-`bwd_backend`, as in the reference:
+single-statistic ops `kfu`, `psi1` and `psi2`. Each forward sends a CUDA
+tensor to its hand-written kernel (`suffstats.suffstats_cuda`,
+`kfu.kfu_cuda`, `psi1.psi1_cuda`, `psi2.psi2_cuda`) and a CPU tensor to the
+plain PyTorch version, for no other reason than that it lies on the CPU.
+The backward is picked by `bwd_backend`, as in the reference:
 
   * ``"auto"``   — the reverse kernel (`suffstats.suffstats_bwd_cuda`,
-    `suffstats.psi1_bwd_cuda`, `suffstats.psi2_bwd_cuda`) for CUDA tensors,
-    the plain reverse pass for CPU tensors;
+    `suffstats.kfu_bwd_cuda`, `suffstats.psi1_bwd_cuda`,
+    `suffstats.psi2_bwd_cuda`) for CUDA tensors, the plain reverse pass for
+    CPU tensors;
   * ``"pallas"`` — the reverse kernel only; raises on CPU tensors (a CUDA
     kernel has no interpret mode);
   * ``"jnp"``    — the plain reverse pass on any device.
 
 Each op saves only its inputs. As in the reference, every input is cast to
-mu's dtype at the op's boundary and each cotangent is returned in its own
+the first input's dtype (mu's, or X's for `kfu`) at the op's boundary and each cotangent is returned in its own
 input's dtype. There is no `block=` and no autotuner yet.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.kfu import kfu_cuda, kfu_plain
 from repro_torch.kernels.psi1 import psi1_cuda, psi1_plain
 from repro_torch.kernels.psi2 import psi2_cuda, psi2_plain
-from repro_torch.kernels.suffstats import (psi1_bwd_cuda, psi1_vjp_plain,
+from repro_torch.kernels.suffstats import (kfu_bwd_cuda, kfu_vjp_plain,
+                                           psi1_bwd_cuda, psi1_vjp_plain,
                                            psi2_bwd_cuda, psi2_vjp_plain,
                                            suffstats_bwd_cuda, suffstats_cuda,
                                            suffstats_fused_plain,
@@ -84,6 +87,18 @@ class _SuffStats(torch.autograd.Function):
         return _backward(ctx, (g2, gY), suffstats_vjp_plain, suffstats_bwd_cuda)
 
 
+class _Kfu(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, X, Z, variance, lengthscale, bwd_backend):
+        return _forward(ctx, (X, Z, variance, lengthscale), bwd_backend,
+                        kfu_plain, kfu_cuda)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, (g,), kfu_vjp_plain, kfu_bwd_cuda)
+
+
 class _Psi1(torch.autograd.Function):
 
     @staticmethod
@@ -115,6 +130,14 @@ def suffstats(mu, S, Y, Z, variance, lengthscale, *,
     `bwd_backend` selects."""
     _check_bwd_backend(bwd_backend)
     return _SuffStats.apply(mu, S, Y, Z, variance, lengthscale, bwd_backend)
+
+
+def kfu(X, Z, variance, lengthscale, *, bwd_backend: str = "auto"):
+    """RBF cross covariance K_fu (N, M) in X's dtype, differentiable through
+    the hand-derived reverse pass that `bwd_backend` selects (psi1's at
+    S = 0: the psi1 reverse kernel on the card)."""
+    _check_bwd_backend(bwd_backend)
+    return _Kfu.apply(X, Z, variance, lengthscale, bwd_backend)
 
 
 def psi1(mu, S, Z, variance, lengthscale, *, bwd_backend: str = "auto"):

@@ -22,6 +22,8 @@ the fused rules with one branch removed. Counterpart of
   * `psi1_bwd_cuda`, `psi2_bwd_cuda` — the wrappers of `csrc/psi1_bwd.cu`
     and `csrc/psi2_bwd.cu` (replace `psi1_bwd_pallas`, `psi2_bwd_pallas`);
     `PSI1_BWD_LAUNCHES`, `PSI2_BWD_LAUNCHES` count their launches.
+  * `kfu_vjp_plain`, `kfu_bwd_cuda` — K_fu's reverse pass, the psi1 ones at
+    S = 0 (ports of `kfu_vjp_jnp` and `kfu_bwd_pallas`).
 
 CPU tensors run the plain versions; `chip_smoke.py` holds each kernel
 against its plain version on the card. The kernel wrappers take CUDA
@@ -269,6 +271,15 @@ def psi1_vjp_plain(mu, S, Z, variance, lengthscale, g, *, chunk: int = 512):
     return _sum_chunks(parts, mu, S, Z, variance, lengthscale)
 
 
+def kfu_vjp_plain(X, Z, variance, lengthscale, g, *, chunk: int = 512):
+    """Cotangents (dX, dZ, dvariance, dlengthscale) of
+    K_fu = kfu_plain(...) given the output cotangent g (N, M): the psi1
+    reverse pass at S = 0 with dS dropped (port of `kfu_vjp_jnp`)."""
+    dX, _, dZ, dv, dl = psi1_vjp_plain(X, torch.zeros_like(X), Z, variance,
+                                       lengthscale, g, chunk=chunk)
+    return dX, dZ, dv, dl
+
+
 def psi2_vjp_plain(mu, S, Z, variance, lengthscale, g2, *, chunk: int = 512):
     """Cotangents (dmu, dS, dZ, dvariance, dlengthscale) of
     psi2 = psi2_plain(...) given the output cotangent g2 (M, M): the fused
@@ -342,9 +353,9 @@ def check_inputs(mu, S, Y, Z, variance, lengthscale, *, what: str,
     """Raise ValueError on anything the kernel `what` does not take: CUDA
     tensors of one float dtype, matching shapes, 1 <= Q <= MAX_Q, row
     indices within 32 bits, contiguous arrays. `Y` is None for the
-    single-statistic kernels; `per_point` kernels (and every reverse
-    kernel) need N >= 1. Cotangents are checked by name: g2 (M, M),
-    gY (M, D), g (N, M)."""
+    single-statistic kernels and `S` for K_fu (mu is then X); `per_point`
+    kernels (and every reverse kernel) need N >= 1. Cotangents are checked
+    by name: g2 (M, M), gY (M, D), g (N, M)."""
     named = {"mu": mu, "S": S, "Y": Y, "Z": Z, "variance": variance,
              "lengthscale": lengthscale, **cotangents}
     named = {k: t for k, t in named.items() if t is not None}
@@ -358,16 +369,18 @@ def check_inputs(mu, S, Y, Z, variance, lengthscale, *, what: str,
             raise ValueError(f"{name} is {t.dtype} on {t.device}; every input "
                              f"must be {dt} on {dev}")
     if mu.ndim != 2 or Z.ndim != 2 or (Y is not None and Y.ndim != 2):
-        raise ValueError(f"{'mu, S, Y, Z' if Y is not None else 'mu, S, Z'} "
+        raise ValueError(f"{', '.join(k for k in ('mu', 'S', 'Y', 'Z') if k in named)} "
                          f"must be 2-D")
     N, Q = mu.shape
     M = Z.shape[0]
     D = Y.shape[1] if Y is not None else 1
-    if (S.shape != mu.shape or (Y is not None and Y.shape[0] != N)
+    if ((S is not None and S.shape != mu.shape)
+            or (Y is not None and Y.shape[0] != N)
             or Z.shape[1] != Q or variance.numel() != 1
             or lengthscale.shape != (Q,)):
         raise ValueError(
-            f"shape mismatch: mu {tuple(mu.shape)}, S {tuple(S.shape)}, "
+            f"shape mismatch: mu {tuple(mu.shape)}, "
+            + (f"S {tuple(S.shape)}, " if S is not None else "")
             + (f"Y {tuple(Y.shape)}, " if Y is not None else "")
             + f"Z {tuple(Z.shape)}, variance {tuple(variance.shape)}, "
             f"lengthscale {tuple(lengthscale.shape)}")
@@ -531,3 +544,14 @@ def psi1_bwd_cuda(mu, S, Z, variance, lengthscale, g):
     PSI1_BWD_LAUNCHES += 1
     dv = (point_sum[Q] / variance).reshape(variance.shape)
     return dmu, dS, dZ, dv, point_sum[:Q]
+
+
+def kfu_bwd_cuda(X, Z, variance, lengthscale, g):
+    """Cotangents (dX, dZ, dvariance, dlengthscale) of K_fu given g (N, M)
+    from the psi1 reverse kernel at S = 0 (port of `kfu_bwd_pallas`, which
+    wraps `psi1_bwd_pallas` the same way): one launch of
+    `csrc/psi1_bwd.cu`, counted by `PSI1_BWD_LAUNCHES`. Raises where
+    `psi1_bwd_cuda` does."""
+    dX, _, dZ, dv, dl = psi1_bwd_cuda(X, torch.zeros_like(X), Z, variance,
+                                      lengthscale, g)
+    return dX, dZ, dv, dl

@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels (marker `cuda`): each kernel
-(the fused forward and reverse, psi1 and psi2 and their reverses) against
-its plain PyTorch version on the card. Imports no JAX, so it runs
+(the fused forward and reverse, psi1 and psi2 and their reverses, K_fu and
+its reverse through the psi1 reverse kernel) against its plain PyTorch
+version on the card. Imports no JAX, so it runs
 on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import kfu as kf
 from repro_torch.kernels import ops
 from repro_torch.kernels import psi1 as p1
 from repro_torch.kernels import psi2 as p2
@@ -229,3 +231,78 @@ def test_single_stat_ops_route_cuda_tensors_to_the_kernels(card, stat):
     for a, leaf, w in zip(grads, leaves, want):
         assert a.dtype == leaf.dtype
         assert _rel(a, w) <= TOL[leaf.dtype]
+
+
+# ---------------------------------------------------------------------------
+# K_fu (B7) and its reverse pass (B6 at S = 0)
+# ---------------------------------------------------------------------------
+
+def _as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _kfu_args(case):
+    """(X, Z, variance, lengthscale, g (N, M)) for `case`."""
+    X, _, Z, v, l, g, _ = _single(case)
+    return [X, Z, v, l, g]
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32), ids=str)
+@pytest.mark.parametrize("case", CASES, ids=str)
+@pytest.mark.parametrize("direction", ("fwd", "bwd"))
+def test_kfu_kernel_matches_plain(card, direction, case, dtype):
+    args = _kfu_args(case)
+    if direction == "fwd":
+        args, kernel, plain, counter = args[:4], kf.kfu_cuda, kf.kfu_plain, (kf, "LAUNCHES")
+    else:
+        kernel, plain, counter = ss.kfu_bwd_cuda, ss.kfu_vjp_plain, (ss, "PSI1_BWD_LAUNCHES")
+    want = _as_tuple(plain(*args))
+    dev = [a.to(card, dtype) for a in args]
+    before = getattr(*counter)
+    got, again = _as_tuple(kernel(*dev)), _as_tuple(kernel(*dev))
+    torch.cuda.synchronize()
+    assert getattr(*counter) == before + 2
+    assert len(got) == len(want)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.equal(g, a)  # bitwise reproducible
+        assert _rel(g, w) <= TOL[dtype]
+
+
+
+def test_kfu_wrapper_refuses_what_the_kernel_does_not_take(card):
+    X, Z, v, l, g = [a.to(card) for a in _kfu_args((37, 5, 2, 3, False))]
+    before = kf.LAUNCHES
+    with pytest.raises(ValueError, match="float32 or float64"):
+        kf.kfu_cuda(X.half(), Z.half(), v.half(), l.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        kf.kfu_cuda(X.T.contiguous().T, Z, v, l)
+    with pytest.raises(ValueError, match="shape"):
+        kf.kfu_cuda(X, Z[:, :1], v, l)
+    with pytest.raises(ValueError, match="float64 on"):
+        kf.kfu_cuda(X, Z.cpu(), v, l)
+    with pytest.raises(ValueError, match="CUDA"):
+        kf.kfu_cuda(*(a.cpu() for a in (X, Z, v, l)))
+    with pytest.raises(ValueError, match="shape"):
+        ss.kfu_bwd_cuda(X, Z, v, l, g[:, :-1])
+    assert kf.LAUNCHES == before
+
+
+def test_ops_kfu_routes_cuda_tensors_to_the_kernels(card):
+    """The regression facade's mix (float64 X and Z; float32 variance and
+    lengthscale): forward through B7 and reverse through B6, one launch
+    each, each cotangent in its own input's dtype, against the plain
+    reverse pass."""
+    X, Z, v, l, g = _kfu_args((300, 33, 2, 3, False))
+    want = ss.kfu_vjp_plain(X, Z, v.float().double(), l.float().double(), g)
+    leaves = [a.to(card).requires_grad_(True) for a in (X, Z, v.float(), l.float())]
+    before = (kf.LAUNCHES, ss.PSI1_BWD_LAUNCHES, p1.LAUNCHES)
+    out = ops.kfu(*leaves)
+    grads = torch.autograd.grad((out * g.to(card)).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (kf.LAUNCHES, ss.PSI1_BWD_LAUNCHES, p1.LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2])
+    for a, leaf, w in zip(grads, leaves, want):
+        assert a.dtype == leaf.dtype
+        assert _rel(a, w) <= TOL[leaf.dtype]
+

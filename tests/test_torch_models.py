@@ -191,10 +191,11 @@ def test_facade_default_init_runs_and_lowers_the_loss():
 
 
 def test_facades_refuse_unported_options():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        SparseGPRegression(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        BayesianGPLVM(mesh=object(), device="cpu")
+    # mesh= is ported: the facades keep it for the data-parallel path,
+    # driven on gloo ranks in tests/test_torch_distributed.py
+    mesh = object()
+    assert SparseGPRegression(mesh=mesh, backend="pallas", device="cpu").mesh is mesh
+    assert BayesianGPLVM(mesh=mesh, device="cpu").mesh is mesh
     with pytest.raises(NotImplementedError, match="temporal"):
         regression(get("rbf")(1), backend="temporal")
     with pytest.raises(ValueError, match="backend"):

@@ -120,8 +120,11 @@ def test_streaming_suff_stats_tail_chunk_matches_jax(kind, chunk):
 def test_unported_backends_and_knobs_raise():
     a, k = _data()
     X, Y, Z = (torch.as_tensor(a[n]) for n in "XYZ")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tps.exact_stats_rbf(_torch(k), X, Y, Z, backend="pallas")
+    # backend="pallas" is ported (the K_fu op): it now equals the plain path
+    got = tps.exact_stats_rbf(_torch(k), X, Y, Z, backend="pallas")
+    want = tps.exact_stats_rbf(_torch(k), X, Y, Z, backend="jnp")
+    for name, g, w in zip(tps.SuffStats._fields, got, want):
+        assert _rel(g, w) <= RTOL, name
     with pytest.raises(ValueError, match="backend"):
         tps.exact_stats_rbf(_torch(k), X, Y, Z, backend="xla")
     with pytest.raises(NotImplementedError, match="autotuner"):

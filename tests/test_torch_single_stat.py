@@ -26,8 +26,8 @@ from repro.kernels.psi2 import psi2_pallas
 from repro.kernels.suffstats import (psi1_bwd_pallas, psi1_vjp_jnp,
                                      psi2_bwd_pallas, psi2_vjp_jnp)
 from repro_torch.core import psi_stats as tps
-from repro_torch.gp import (BayesianGPLVM, ExpectedBatch, SparseGPRegression,
-                            get, streaming_suff_stats, suff_stats)
+from repro_torch.gp import (BayesianGPLVM, ExpectedBatch, get,
+                            streaming_suff_stats, suff_stats)
 from repro_torch.kernels import ops
 from repro_torch.kernels import psi1 as tpsi1
 from repro_torch.kernels import psi2 as tpsi2
@@ -133,7 +133,7 @@ def test_plain_vjp_is_chunk_independent(stat, chunk):
 
 def test_psi1_vjp_at_zero_variance_is_the_kfu_reverse_pass():
     """At S = 0 the psi1 reverse pass is K_fu's (the reference's
-    kfu_vjp_jnp, and the next slice's kfu reverse): dX, dZ, dv, dl."""
+    kfu_vjp_jnp, and the port's kfu reverse): dX, dZ, dv, dl."""
     from repro.kernels.suffstats import kfu_vjp_jnp
 
     mu, S, Z, v, l, g, _ = _inputs(37, 13, 2, False)
@@ -307,12 +307,3 @@ def test_gplvm_pallas_fit_matches_jax_and_serves():
     for g, w in zip(got, tm.predict(Xt)):
         assert _rel(g, w) <= 1e-12
 
-
-def test_sgpr_pallas_waits_for_the_kfu_kernel():
-    with pytest.raises(NotImplementedError, match="B7"):
-        SparseGPRegression(backend="pallas", device="cpu")
-    arrs, kern = _stats_data()
-    X, _, Y, Z = map(torch.as_tensor, arrs)
-    with pytest.raises(NotImplementedError, match="B7"):
-        tps.exact_stats_rbf({k: torch.as_tensor(v) for k, v in kern.items()},
-                            X, Y, Z, backend="pallas")
