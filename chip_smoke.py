@@ -77,7 +77,10 @@ Phases (any failure exits non-zero and prints no result):
    is joined with a timeout; a child's failure fails the run.
 9. Times, with the card's name and power limit: each kernel and its plain
    version at the paper's shape (median of CUDA-event timings), the
-   kernels' bounds, the SGPR state build through "pallas" and "fused",
+   kernels' bounds, the exponentials B1-B4's launch geometry evaluates per
+   datapoint at both kernel shapes against the M (M + 1) / 2 pairs (and M
+   psi1 columns) the statistics need (`[slots]` lines), the SGPR state
+   build through "pallas" and "fused",
    predict p50 at B = 1 and B = 256, and the median training-step time
    after the first step for every model and dtype (the two-rank step is
    printed by phase 8), with one profiled step each: device time by
@@ -92,6 +95,7 @@ import datetime
 import inspect
 import json
 import multiprocessing
+import re
 import shutil
 import statistics
 import subprocess
@@ -249,15 +253,40 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_instance(mangled: str) -> str:
+    """A short name of a kernel instance from its mangled name, e.g.
+    "pair_kernel<double, 1>" or "point_kernel<float, 0, true>"."""
+    m = re.search(r"I([fd])((?:L[ib]\d+E)*)E", mangled)
+    if not m:
+        return mangled
+    # the template's name is the <length><name> just before its arguments
+    head = mangled[:m.start()]
+    names = [head[-n:] for n in range(1, len(head)) if head[:-n].endswith(str(n))]
+    if not names:
+        return mangled
+    args = ["float" if m.group(1) == "f" else "double"]
+    for kind, val in re.findall(r"L([ib])(\d+)E", m.group(2)):
+        args.append(val if kind == "i" else ("true" if val == "1" else "false"))
+    return f"{names[0]}<{', '.join(args)}>"
+
+
 def phase_build() -> None:
+    """Build every library, then print each kernel instance's registers and
+    spills from nvcc's -Xptxas -v report."""
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, (secs, out) in _build.BUILD_LOG.items():
         log(f"[build] {name}: nvcc {secs:.1f} s")
+        entry, spill = "?", ""
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = kernel_instance(line.split("'")[1])
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                log(f"[build]   {entry}: {regs} registers; {spill}")
 
 
 # ---------------------------------------------------------------------------
@@ -1306,8 +1335,9 @@ def bound_ms(N, M, Q, D, dtype) -> tuple:
 
 def bwd_bound_ms(N, M, Q, D, dtype) -> tuple:
     """Least work of the reverse pass at this shape, each exponential
-    evaluated once (the kernel evaluates them twice; that is its design,
-    not the work). Per (point, pair): the exponent, d = mu - zbar, d^2 r
+    evaluated once (the kernel evaluates each psi2 one once, and the psi1
+    ones twice: in its point pass and its dZ pass). Per (point, pair): the
+    exponent, d = mu - zbar, d^2 r
     and its sum (4Q); T = Gw E and t += T (2); sd += T d and sv += (T d) d
     (4Q); P += E (1); A_q += (E r_q) d_q (3Q): 11Q + 3 flops and one exp.
     Per (point, m): the exponent (4Q), y . gyv (2D), W1 = (y . gyv) K,
@@ -1440,6 +1470,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def exp_slots(lib: str, N: int, M: int, Q: int, D: int, dtype) -> str:
+    """The exponentials a datapoint costs in the launch geometry of `lib`
+    (B1-B4) on this card at this shape, from the wrappers' own pair and
+    split helpers, beside the M (M + 1) / 2 psi2 pairs (and M psi1 columns)
+    the statistics need. The psi1 side: B1's psiY blocks evaluate whole
+    32-row tiles per 8-column d tile; B2's point pass evaluates M and its dZ
+    pass whole 32-row tiles."""
+    geo, sms = ss.card_geometry(lib, torch.empty(1, Q, device="cuda", dtype=dtype))
+    P = ss.psi2_splits(N, M, geo, sms)
+    psi2 = (ss.evaluated_slots(M, geo.pairs_per_block)
+            * ss.evaluated_rows(N, P, geo.run, geo.group) / N)
+    psi1 = {"suffstats_fwd": -(-M // ss.Y_TILE_M) * ss.Y_TILE_M * -(-D // ss.Y_TILE_D),
+            "suffstats_bwd": M + -(-M // ss.Z_TILE_M) * ss.Z_TILE_M}.get(lib, 0)
+    blocks = ss.pair_blocks(M, geo.pairs_per_block)
+    return (f"[slots] {lib} {str(dtype)[6:]} N={N} M={M} Q={Q} D={D}: {psi2:.1f} psi2 "
+            f"exponentials a point for the {ss.pair_count(M)} pairs it needs "
+            f"({100 * (psi2 / ss.pair_count(M) - 1):.2f} % more)"
+            + (f", psi1 {psi1} for the {M} it needs" if psi1 else "")
+            + f"; grid {blocks} pair blocks x {P} N-splits, {geo.blocks_per_sm} resident "
+            f"a multiprocessor x {sms}")
+
+
 def _time_kernel(out: dict, key, what: str, kernel, plain, bound: tuple,
                  reps: int) -> None:
     t = cuda_ms(kernel, reps=reps)
@@ -1469,6 +1521,14 @@ def state_build_ms(data: dict, dtype: torch.dtype, backend: str, reps: int = 5) 
     return statistics.median(times[1:])
 
 
+def log_slots(lib: str, dtype) -> None:
+    """`exp_slots` of a psi2 kernel at the paper's shape (beside its [time]
+    line) and at the second kernel shape."""
+    log(exp_slots(lib, *PAPER, dtype))
+    N, M, Q, D = KERNEL_SHAPES[1]
+    log(exp_slots(lib, N, M, Q, D, dtype))
+
+
 def phase_times(trained: dict, pallas: dict, sgpr: dict, data: dict) -> dict:
     """Kernel, plain-version, state-build and training-step times; none of
     these launches counts towards a main path."""
@@ -1488,17 +1548,21 @@ def phase_times(trained: dict, pallas: dict, sgpr: dict, data: dict) -> dict:
         _time_kernel(out, (dtype, "fwd"), f"suffstats_fwd {shape}",
                      lambda: ss.suffstats_cuda(*x), lambda: ss.suffstats_fused_plain(*x),
                      bound_ms(N, M, Q, D, dtype), reps=20)
+        log_slots("suffstats_fwd", dtype)
         _time_kernel(out, (dtype, "bwd"), f"suffstats_bwd {shape}",
                      lambda: ss.suffstats_bwd_cuda(*x, *g),
                      lambda: ss.suffstats_vjp_plain(*x, *g),
                      bwd_bound_ms(N, M, Q, D, dtype), reps=10)
+        log_slots("suffstats_bwd", dtype)
         _time_kernel(out, (dtype, "psi2_fwd"), f"psi2_fwd {shape}",
                      lambda: p2.psi2_cuda(*xs), lambda: p2.psi2_plain(*xs),
                      psi2_bound_ms(N, M, Q, D, dtype), reps=20)
+        log_slots("psi2_fwd", dtype)
         _time_kernel(out, (dtype, "psi2_bwd"), f"psi2_bwd {shape}",
                      lambda: ss.psi2_bwd_cuda(*xs, g[0]),
                      lambda: ss.psi2_vjp_plain(*xs, g[0]),
                      psi2_bwd_bound_ms(N, M, Q, D, dtype), reps=10)
+        log_slots("psi2_bwd", dtype)
         _time_kernel(out, (dtype, "psi1_fwd"), f"psi1_fwd {shape}",
                      lambda: p1.psi1_cuda(*xs), lambda: p1.psi1_plain(*xs),
                      psi1_bound_ms(N, M, Q, D, dtype), reps=20)

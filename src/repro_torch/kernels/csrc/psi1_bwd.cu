@@ -264,9 +264,9 @@ cudaError_t psi1_bwd(const T* mu, const T* S, const T* Z, const T* l2, const T* 
                                                         N, Q, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = reduce_partials<T>(point_part, point_sum, NB, 1, 1, Q + 1, 0, stream);
+  err = reduce_partials<T>(point_part, point_sum, NB, 1, 1, Q + 1, stream);
   if (err != cudaSuccess) return err;
-  return reduce_partials<T>(dz_part, dz, P, 1, M, Q, 0, stream);
+  return reduce_partials<T>(dz_part, dz, P, 1, M, Q, stream);
 }
 
 }  // namespace

@@ -14,36 +14,41 @@
 // The caller applies the O(M^2) prefactors: psi2 = v^2 exp(-|z_m - z_m'|^2 /
 // 4 l^2) acc2 and psiY = v accY.
 //
-// What bounds it on this card: N M^2 exponentials and about N M^2 (3Q + 2)
-// floating-point operations against O(N (Q + D)) bytes read, so the
-// special-function unit's exp rate and FP32 instruction throughput bound
-// it, never memory.
+// What bounds it on this card: N M (M + 1) / 2 + N M exponentials and about
+// N M (M + 1) / 2 (3Q + 2) floating-point operations against O(N (Q + D))
+// bytes read, so the special-function unit's exp rate (float) or FP64 issue
+// (double) bounds it, never memory.
 //
-// What the design does about it:
-//   * The exponent uses the direct difference (mu - zbar)^2 r, not the TPU
-//     kernel's expanded form (two MXU products plus a rank-Q cross term):
-//     on CUDA cores the two cost the same, and the direct form has no f32
-//     cancellation at large |mu| / l.
-//   * psi2 is symmetric and zbar is commutative in floating point, so only
-//     the upper-triangular 32 x 32 output tiles are computed (half the exps);
-//     the reduction mirrors them.
-//   * Each block owns one (tile, N-split): it stages a run of datapoints and
-//     their per-point terms (r_nq, lognorm2_n) in shared memory and keeps its
-//     tile's sums in registers (4 outputs a thread, z-bar in registers when Q
-//     is a compile-time 1..4). The TPU kernel carries its sums across a
-//     sequential grid; here blocks run concurrently, so each writes a partial
-//     to scratch (P, M, M) and a second kernel sums the P partials in a fixed
-//     order. No atomics: results are bitwise equal from run to run.
-//   * Sums run in two levels: each staged run of points in the input dtype,
-//     the running total over runs (and the reduction over partials) in
-//     double. A float thread's one long float sum over ~2e4 points was off
-//     by ~1e-5 of psi2, enough to leave Kuu + beta psi2 indefinite in float32
-//     where the inducing points crowd (about 2e-7 now, as an exactly
-//     rounded psi2 would be); a conversion and a double add per output per
-//     run cost next to nothing.
-//   * The caller picks P so that about 4 x 132 blocks are in flight.
+// What the design does about it (common.cuh: psi2_partial_kernel, shared
+// with psi2_fwd.cu):
+//   * Only real pairs get a slot: the M (M + 1) / 2 pairs a <= b are packed
+//     row by row and each thread of a pair block owns 4 of them, zbar in
+//     registers when Q is a compile-time 1..4 (shared memory for a run-time
+//     Q <= 16). A warp skips a slot that lies wholly past the last pair, so
+//     a point costs 32 ceil(M (M + 1) / 64) exponentials: 5,056 for the
+//     5,050 pairs at M = 100, none wasted at M = 256.
+//   * Base-2 exponentials: log2(e) is folded into the staged per-point terms
+//     r' and lg', so a pair's step (Q = 1) is FADD, FMUL, FFMA, MUFU.EX2,
+//     FADD in float; in double a table-driven 2^x for x <= 0 (common.cuh:
+//     exp2_neg, 32 entries and a degree-6 polynomial; no overflow branch).
+//   * The exponent is the direct (mu - zbar)^2 r form, not the TPU kernel's
+//     expanded MXU form, which cancels in float32 at large |mu| / l.
+//   * Blocks fill the card in one even wave: the host picks the N-splits P
+//     from the pair-block count and the resident blocks per multiprocessor
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, suffstats_fwd_geometry),
+//     never from timing, so the summation order is fixed.
+//   * The TPU kernel carries its sums across a sequential grid; here blocks
+//     run concurrently, so each writes a packed partial (P, M (M + 1) / 2)
+//     and a second kernel sums the P partials in a fixed order in double
+//     and mirrors the triangle. No atomics: results are bitwise equal from
+//     run to run.
+//   * Sums run in two levels: each staged run of 128 points in the input
+//     dtype, the running total over runs (and the reduction over partials)
+//     in double. A float thread's one long float sum over ~2e4 points was
+//     off by ~1e-5 of psi2, enough to leave Kuu + beta psi2 indefinite in
+//     float32 where the inducing points crowd.
 //   * psiY runs in its own blocks per (32-row m tile, 8-column d tile,
-//     N-split) with the same fixed-order reduction.
+//     N-split) with the same fixed-order reduction and accurate expf.
 //   * Ragged N, M and D are masked at the bounds; nothing is padded.
 //   * float and double instances compute in the input dtype.
 #include "common.cuh"
@@ -144,16 +149,16 @@ cudaError_t suffstats_fwd(const T* mu, const T* S, const T* Y, const T* Z,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = reduce_partials<T>(part2, acc2, P2, 1, M, M, kTile, stream);
+  err = reduce_packed<T>(part2, acc2, P2, 1, M, stream);
   if (err != cudaSuccess) return err;
-  return reduce_partials<T>(partY, accY, PY, 1, M, D, 0, stream);
+  return reduce_partials<T>(partY, accY, PY, 1, M, D, stream);
 }
 
 }  // namespace
 
 // Plain C interface (bound with ctypes). Pointers are device pointers of
 // contiguous row-major arrays: mu, S (N, Q); Y (N, D); Z (M, Q); l2 (Q);
-// scratch part2 (P2, M, M), partY (PY, M, D); outputs acc2 (M, M), accY
+// scratch part2 (P2, M (M + 1) / 2), partY (PY, M, D); outputs acc2 (M, M), accY
 // (M, D). Launches on `stream`, does not synchronize, returns the first
 // cudaGetLastError() that is not cudaSuccess (0 on success).
 extern "C" int suffstats_fwd_f32(const float* mu, const float* S, const float* Y,
@@ -174,6 +179,13 @@ extern "C" int suffstats_fwd_f64(const double* mu, const double* S, const double
   return static_cast<int>(suffstats_fwd<double>(mu, S, Y, Z, l2, part2, partY, acc2, accY,
                                                 N, M, Q, D, P2, PY,
                                                 static_cast<cudaStream_t>(stream)));
+}
+
+// out = [psi2 pairs per block, resident psi2 blocks per multiprocessor,
+// staged run] for the float (f64 == 0) or double instance at Q, on the
+// current device
+extern "C" int suffstats_fwd_geometry(int f64, int Q, int* out) {
+  return static_cast<int>(f64 ? psi2_geometry<double>(Q, out) : psi2_geometry<float>(Q, out));
 }
 
 extern "C" const char* suffstats_fwd_error_string(int code) {

@@ -18,8 +18,9 @@ never falls back to the plain version.
 from __future__ import annotations
 
 from repro_torch.kernels.suffstats import (_chunks, _psi2_prefactor,
-                                           _psi2_weighted, check_inputs, launch,
-                                           splits)
+                                           _psi2_weighted, card_geometry,
+                                           check_inputs, launch, pair_count,
+                                           psi2_splits)
 
 # incremented once per launch of the CUDA kernel, and nowhere else
 LAUNCHES = 0
@@ -47,9 +48,9 @@ def psi2_cuda(mu, S, Z, variance, lengthscale):
     check_inputs(mu, S, None, Z, variance, lengthscale, what="psi2_cuda")
     N, Q = mu.shape
     M = Z.shape[0]
-    P = splits(N, M, 1)[0]
+    P = psi2_splits(N, M, *card_geometry("psi2_fwd", mu))
     l2 = (lengthscale * lengthscale).contiguous()
-    part, acc = mu.new_empty(P, M, M), mu.new_empty(M, M)
+    part, acc = mu.new_empty(P, pair_count(M)), mu.new_empty(M, M)
     launch("psi2_fwd", (mu, S, Z, l2, part, acc), (N, M, Q, P))
     LAUNCHES += 1
     return _psi2_prefactor(Z, variance, lengthscale) * acc

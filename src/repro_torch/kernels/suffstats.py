@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,14 +47,17 @@ BWD_LAUNCHES = 0
 PSI1_BWD_LAUNCHES = 0
 PSI2_BWD_LAUNCHES = 0
 
-# geometry of csrc/suffstats_fwd.cu (keep in step with its constants)
-TILE = 32  # psi2 output tile edge
-STAGE = 128  # datapoints a psi2 block stages per step
+# threads of a psi2 pair block (csrc/common.cuh: kThreads); a warp is 32.
+# How many pairs a block owns, how many points it stages per step and how
+# many blocks a multiprocessor holds come from the library itself
+# (`geometry`), so the host and the kernel cannot disagree.
+PAIR_THREADS = 256
 Y_TILE_M, Y_TILE_D, Y_STAGE = 32, 8, 64  # psiY block tile and staging run
 MAX_Q = 16  # shared-memory staging is sized for Q <= 16
-# N-splits are chosen so that about this many blocks run at once (4 per SM
-# of a 132-SM H100). A function of the shapes only, so the summation order
-# and hence the bits of the result never change from run to run.
+# N-splits of the psiY, dZ and psi1-reverse blocks are chosen so that about
+# this many blocks run at once (4 per SM of a 132-SM H100). A function of
+# the shapes only, so the summation order and hence the bits of the result
+# never change from run to run.
 TARGET_BLOCKS = 4 * 132
 # geometry of csrc/suffstats_bwd.cu: threads (datapoints) per point-pass
 # block, and the dZ pass's inducing-point tile and staging run
@@ -303,16 +307,91 @@ def psi2_vjp_plain(mu, S, Z, variance, lengthscale, g2, *, chunk: int = 512):
 # the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def splits(N: int, M: int, D: int) -> tuple[int, int]:
-    """(P2, PY): how many N-splits the psi2 and psiY blocks take, so that
-    about TARGET_BLOCKS blocks are in flight and no split is shorter than
-    one staging run."""
-    tiles = -(-M // TILE)
-    tri = tiles * (tiles + 1) // 2  # upper-triangular psi2 tiles
-    p2 = min(-(-TARGET_BLOCKS // tri), -(-N // STAGE))
+class Geometry(NamedTuple):
+    """A psi2 pair pass's launch geometry, as its library reports it."""
+    pairs_per_block: int  # pair slots of a block: slots a thread x PAIR_THREADS
+    blocks_per_sm: int  # resident blocks a multiprocessor holds
+    run: int  # datapoints a block stages per step
+    group: int  # datapoints a warp's per-point reduction takes at once (1: forward)
+
+
+def pair_count(M: int) -> int:
+    """The psi2 pairs a <= b: M (M + 1) / 2."""
+    return M * (M + 1) // 2
+
+
+def pair_of(t: int, M: int) -> tuple[int, int]:
+    """The pair (a, b), a <= b, numbered t in the packed upper triangle
+    (row by row); the host's copy of csrc/common.cuh: pair_of."""
+    a = 0
+    while t >= M - a:
+        t -= M - a
+        a += 1
+    return a, a + t
+
+
+def pair_blocks(M: int, pairs_per_block: int) -> int:
+    """Pair blocks that cover the M (M + 1) / 2 pairs."""
+    return -(-pair_count(M) // pairs_per_block)
+
+
+def block_pairs(j: int, M: int, pairs_per_block: int) -> list:
+    """The pairs of pair block j, slot by slot as the kernels number them
+    (slot k of thread t is pair j ppb + k PAIR_THREADS + t); slots past the
+    last pair hold none."""
+    first = j * pairs_per_block
+    return [pair_of(first + i, M) for i in range(pairs_per_block)
+            if first + i < pair_count(M)]
+
+
+def evaluated_slots(M: int, pairs_per_block: int) -> int:
+    """psi2 exponentials a datapoint costs in the pair layout: 32 for every
+    warp's slot that holds at least one real pair (the kernels' warp-uniform
+    `live`); the rest of the pair blocks' slots are skipped."""
+    npairs = pair_count(M)
+    warps = PAIR_THREADS // 32
+    return 32 * sum(j * pairs_per_block + k * PAIR_THREADS + 32 * w < npairs
+                    for j in range(pair_blocks(M, pairs_per_block))
+                    for k in range(pairs_per_block // PAIR_THREADS)
+                    for w in range(warps))
+
+
+def split_bounds(N: int, P: int) -> list:
+    """[begin, end) of each of the P N-splits (csrc/common.cuh:
+    split_range): sizes differ by at most one."""
+    return [(N * p // P, N * (p + 1) // P) for p in range(P)]
+
+
+def evaluated_rows(N: int, P: int, run: int, group: int) -> int:
+    """Datapoint rows a pair pass evaluates over its P splits: each staged
+    run rounded up to whole warp reductions of `group` points (the padding
+    rows' exponentials are exactly 0)."""
+    rows = 0
+    for lo, hi in split_bounds(N, P):
+        for base in range(lo, hi, run):
+            rows += -(-min(run, hi - base) // group) * group
+    return rows
+
+
+def psi2_splits(N: int, M: int, geo: Geometry, sms: int) -> int:
+    """N-splits of a psi2 pair pass: as many as keep every pair block in
+    one wave of the card's resident blocks (blocks_per_sm x sms), so no
+    wave is left with a handful of blocks, and no split shorter than one
+    staged run. A pure function of the shapes and the geometry: the
+    summation order, and so the bits of the result, never change from run
+    to run."""
+    blocks = pair_blocks(M, geo.pairs_per_block)
+    resident = geo.blocks_per_sm * sms
+    return max(1, min(resident // blocks, N // geo.run))
+
+
+def splits(N: int, M: int, D: int, geo: Geometry, sms: int) -> tuple[int, int]:
+    """(P2, PY): N-splits of the fused forward's psi2 pair blocks
+    (`psi2_splits`) and of its psiY blocks (about TARGET_BLOCKS blocks, no
+    split shorter than one staging run)."""
     y_blocks = -(-M // Y_TILE_M) * -(-D // Y_TILE_D)
     py = min(-(-TARGET_BLOCKS // y_blocks), -(-N // Y_STAGE))
-    return max(1, p2), max(1, py)
+    return psi2_splits(N, M, geo, sms), max(1, py)
 
 
 DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -332,6 +411,30 @@ def bind(lib_name: str, dtype: torch.dtype, n_ptrs: int, n_ints: int):
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
+
+
+@functools.lru_cache(maxsize=None)
+def geometry(lib_name: str, dtype: torch.dtype, Q: int, device_index: int) -> Geometry:
+    """The psi2 pair pass's geometry of `lib_name`'s instance for (dtype, Q)
+    on the card `device_index`, from the library (its occupancy query)."""
+    lib = _build.library(lib_name)
+    fn = getattr(lib, f"{lib_name}_geometry")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        rc = fn(int(dtype == torch.float64), Q, out)
+    if rc != 0:
+        raise RuntimeError(f"{lib_name} geometry query failed (cudaError {rc})")
+    return Geometry(*out)
+
+
+def card_geometry(lib_name: str, t: torch.Tensor) -> tuple[Geometry, int]:
+    """(geometry, multiprocessor count) for a launch of `lib_name` on t's
+    card, t being mu or X (N, Q)."""
+    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return geometry(lib_name, t.dtype, t.shape[1], dev), sms
 
 
 def launch(lib_name: str, tensors, ints) -> None:
@@ -409,9 +512,9 @@ def suffstats_cuda(mu, S, Y, Z, variance, lengthscale):
     check_inputs(mu, S, Y, Z, variance, lengthscale, what="suffstats_cuda")
     N, Q = mu.shape
     M, D = Z.shape[0], Y.shape[1]
-    P2, PY = splits(N, M, D)
+    P2, PY = splits(N, M, D, *card_geometry("suffstats_fwd", mu))
     l2 = (lengthscale * lengthscale).contiguous()
-    part2 = mu.new_empty(P2, M, M)
+    part2 = mu.new_empty(P2, pair_count(M))
     partY = mu.new_empty(PY, M, D)
     acc2 = mu.new_empty(M, M)
     accY = mu.new_empty(M, D)
@@ -421,17 +524,18 @@ def suffstats_cuda(mu, S, Y, Z, variance, lengthscale):
     return _psi2_prefactor(Z, variance, lengthscale) * acc2, variance * accY
 
 
-def bwd_splits(N: int, M: int) -> tuple[int, int]:
-    """(P2, PZ): N-splits of the reverse kernel's pair pass (as the
-    forward's psi2) and of its dZ pass. Functions of the shapes only."""
+def bwd_splits(N: int, M: int, geo: Geometry, sms: int) -> tuple[int, int]:
+    """(P2, PZ): N-splits of the reverse kernel's pair pass (`psi2_splits`
+    with its own geometry) and of its dZ pass (about TARGET_BLOCKS blocks).
+    Pure functions of the shapes and the geometry."""
     tiles = -(-M // Z_TILE_M)
     pz = min(-(-TARGET_BLOCKS // tiles), -(-N // Z_STAGE))
-    return splits(N, M, 1)[0], max(1, pz)
+    return psi2_splits(N, M, geo, sms), max(1, pz)
 
 
 def _folded_g2(Z, variance, lengthscale, g2):
     """(G2p, Gw): the psi2 cotangent with the (m, m')-only prefactor folded
-    in (eq. (9)), and what the point pass reads: E is symmetric, so it
+    in (eq. (9)), and what the pair pass reads: E is symmetric, so it
     visits a <= b with weight G2p + G2p^T (G2p's own diagonal on a == b)."""
     G2p = g2 * _psi2_prefactor(Z, variance, lengthscale)
     Gw = (torch.triu(G2p + G2p.T, 1) + torch.diag(G2p.diagonal())).contiguous()
@@ -459,13 +563,15 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY):
     launch (eq. (9)); the kernel returns the per-point cotangents, dl and
     v dv summed over the points, and the pair sums P_ab = sum_n E_nab and
     A_abq = sum_n E_nab r_nq (mu_nq - zbar_abq), which the O(M^2 Q)
-    epilogue here turns into the psi2 part of dZ (eq. (18))."""
+    epilogue here turns into the psi2 part of dZ (eq. (18)). Scratch: the
+    pair pass's packed partials and its per-(pair block, point) sums."""
     global BWD_LAUNCHES
     check_inputs(mu, S, Y, Z, variance, lengthscale, what="suffstats_bwd_cuda",
                  g2=g2, gY=gY)
     N, Q = mu.shape
     M, D = Z.shape[0], Y.shape[1]
-    P2, PZ = bwd_splits(N, M)
+    geo, sms = card_geometry("suffstats_bwd", mu)
+    P2, PZ = bwd_splits(N, M, geo, sms)
     NB = -(-N // BWD_THREADS)
     ls = lengthscale.contiguous()
     l2 = (ls * ls).contiguous()
@@ -474,10 +580,12 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY):
     dmu, dS = mu.new_empty(N, Q), mu.new_empty(N, Q)
     dY = mu.new_empty(N, D)
     point_part, point_sum = mu.new_empty(NB, Q + 1), mu.new_empty(Q + 1)
-    pair_part, pair_sum = mu.new_empty(P2, Q + 1, M, M), mu.new_empty(Q + 1, M, M)
+    pair_part = mu.new_empty(P2, Q + 1, pair_count(M))
+    pair_sum = mu.new_empty(Q + 1, M, M)
+    pt = mu.new_empty(pair_blocks(M, geo.pairs_per_block), 1 + 3 * Q, N)
     dz_part, dz1 = mu.new_empty(PZ, M, Q), mu.new_empty(M, Q)
     launch("suffstats_bwd", (mu, S, Y, Z, l2, ls, Gw, gyv, dmu, dS, dY, point_part,
-                             point_sum, pair_part, pair_sum, dz_part, dz1),
+                             point_sum, pair_part, pair_sum, pt, dz_part, dz1),
            (N, M, Q, D, P2, PZ, NB))
     BWD_LAUNCHES += 1
     dZ = dz1 + _psi2_dZ(Z, l2, G2p, pair_sum)
@@ -489,7 +597,7 @@ def psi2_bwd_cuda(mu, S, Z, variance, lengthscale, g2):
     """Cotangents (dmu, dS, dZ, dvariance, dlengthscale) of psi2 from the
     CUDA reverse kernel `csrc/psi2_bwd.cu` (replaces `psi2_bwd_pallas`)
     given g2 (M, M), on mu's device and stream, in the input dtype: the
-    fused reverse kernel's point and pair passes without the psi1 branch,
+    fused reverse kernel's pair and point passes without the psi1 branch,
     the same folded cotangent and dZ epilogue. Raises on inputs the kernel
     does not take and if the launch fails."""
     global PSI2_BWD_LAUNCHES
@@ -497,16 +605,19 @@ def psi2_bwd_cuda(mu, S, Z, variance, lengthscale, g2):
                  g2=g2)
     N, Q = mu.shape
     M = Z.shape[0]
-    P2 = bwd_splits(N, M)[0]
+    geo, sms = card_geometry("psi2_bwd", mu)
+    P2 = psi2_splits(N, M, geo, sms)
     NB = -(-N // BWD_THREADS)
     ls = lengthscale.contiguous()
     l2 = (ls * ls).contiguous()
     G2p, Gw = _folded_g2(Z, variance, lengthscale, g2)
     dmu, dS = mu.new_empty(N, Q), mu.new_empty(N, Q)
     point_part, point_sum = mu.new_empty(NB, Q + 1), mu.new_empty(Q + 1)
-    pair_part, pair_sum = mu.new_empty(P2, Q + 1, M, M), mu.new_empty(Q + 1, M, M)
+    pair_part = mu.new_empty(P2, Q + 1, pair_count(M))
+    pair_sum = mu.new_empty(Q + 1, M, M)
+    pt = mu.new_empty(pair_blocks(M, geo.pairs_per_block), 1 + 3 * Q, N)
     launch("psi2_bwd", (mu, S, Z, l2, ls, Gw, dmu, dS, point_part, point_sum,
-                        pair_part, pair_sum), (N, M, Q, P2, NB))
+                        pair_part, pair_sum, pt), (N, M, Q, P2, NB))
     PSI2_BWD_LAUNCHES += 1
     dv = (point_sum[Q] / variance).reshape(variance.shape)
     return dmu, dS, _psi2_dZ(Z, l2, G2p, pair_sum), dv, point_sum[:Q]

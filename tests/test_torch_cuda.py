@@ -306,3 +306,87 @@ def test_ops_kfu_routes_cuda_tensors_to_the_kernels(card):
         assert a.dtype == leaf.dtype
         assert _rel(a, w) <= TOL[leaf.dtype]
 
+
+
+# ---------------------------------------------------------------------------
+# B1-B4 across the packed pair layout: M on both sides of a pair-block edge
+# (1, 33, 100, 257), the compile-time Q classes (1; 4) and the run-time-Q
+# instance (5), N from one point to many N-splits, S = 0 and S > 0. The
+# plain versions run in float64 on the card.
+# ---------------------------------------------------------------------------
+
+PSI2_CASES = [(1, 1, 1, 3, True), (127, 1, 1, 3, False), (100_003, 1, 4, 3, False),
+              (127, 33, 4, 3, False), (100_003, 33, 5, 2, True), (1, 100, 5, 3, True),
+              (127, 100, 5, 3, False), (100_003, 100, 1, 3, True),
+              (100_003, 100, 1, 3, False), (1, 257, 4, 3, False), (127, 257, 5, 2, True),
+              (100_003, 257, 4, 5, True)]
+PSI2_KERNELS = {  # name: (kernel, plain, arguments of (mu, S, Y, Z, v, l, g2, gY), counter)
+    "suffstats_fwd": (ss.suffstats_cuda, ss.suffstats_fused_plain, (0, 1, 2, 3, 4, 5),
+                      (ss, "LAUNCHES")),
+    "suffstats_bwd": (ss.suffstats_bwd_cuda, ss.suffstats_vjp_plain,
+                      (0, 1, 2, 3, 4, 5, 6, 7), (ss, "BWD_LAUNCHES")),
+    "psi2_fwd": (p2.psi2_cuda, p2.psi2_plain, (0, 1, 3, 4, 5), (p2, "LAUNCHES")),
+    "psi2_bwd": (ss.psi2_bwd_cuda, ss.psi2_vjp_plain, (0, 1, 3, 4, 5, 6),
+                 (ss, "PSI2_BWD_LAUNCHES")),
+}
+
+
+def _psi2_args(case, device):
+    N, M, _, D, _ = case
+    return [a.to(device) for a in _inputs(*case) + _cotangents(M, D)]
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32), ids=str)
+@pytest.mark.parametrize("case", PSI2_CASES, ids=str)
+@pytest.mark.parametrize("name", sorted(PSI2_KERNELS))
+def test_psi2_kernels_match_plain_across_the_pair_layout(card, name, case, dtype):
+    kernel, plain, idx, (module, counter) = PSI2_KERNELS[name]
+    arrs = _psi2_args(case, card)
+    args = [arrs[i] for i in idx]
+    want = _as_tuple(plain(*args))
+    dev = [a.to(dtype) for a in args]
+    before = getattr(module, counter)
+    got, again = _as_tuple(kernel(*dev)), _as_tuple(kernel(*dev))
+    torch.cuda.synchronize()
+    assert getattr(module, counter) == before + 2
+    assert len(got) == len(want)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, a)  # two launches bitwise equal
+        assert _rel(g, w.cpu()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("Q", (1, 5))
+@pytest.mark.parametrize("bwd_backend", ("auto", "pallas"))
+@pytest.mark.parametrize("stat", ("suffstats", "psi2"))
+def test_psi2_ops_route_mixed_dtypes_through_the_kernels(card, stat, bwd_backend, Q):
+    """The GP-LVM facade's mix (float64 mu, Y and Z; float32 S, variance
+    and lengthscale) through `ops.suffstats` / `ops.psi2` at M = 100: one
+    forward and one reverse launch, each cotangent in its own input's
+    dtype, against the plain reverse pass."""
+    case = (300, 100, Q, 3, True)
+    mu, S, Y, Z, v, l = _inputs(*case)
+    g2, gY = _cotangents(100, 3)
+    S32, v32, l32 = S.float(), v.float(), l.float()
+    if stat == "suffstats":
+        want = ss.suffstats_vjp_plain(mu, S32.double(), Y, Z, v32.double(), l32.double(),
+                                      g2, gY)
+        leaves = [a.to(card).requires_grad_(True) for a in (mu, S32, Y, Z, v32, l32)]
+        counters = ((ss, "LAUNCHES"), (ss, "BWD_LAUNCHES"))
+    else:
+        want = ss.psi2_vjp_plain(mu, S32.double(), Z, v32.double(), l32.double(), g2)
+        leaves = [a.to(card).requires_grad_(True) for a in (mu, S32, Z, v32, l32)]
+        counters = ((p2, "LAUNCHES"), (ss, "PSI2_BWD_LAUNCHES"))
+    before = [getattr(*c) for c in counters]
+    if stat == "suffstats":
+        psi2, psiY = ops.suffstats(*leaves, bwd_backend=bwd_backend)
+        loss = (psi2 * g2.to(card)).sum() + (psiY * gY.to(card)).sum()
+    else:
+        loss = (ops.psi2(*leaves, bwd_backend=bwd_backend) * g2.to(card)).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert [getattr(*c) for c in counters] == [b + 1 for b in before]
+    for g, leaf, w in zip(grads, leaves, want):
+        assert g.dtype == leaf.dtype
+        assert _rel(g, w) <= TOL[leaf.dtype]

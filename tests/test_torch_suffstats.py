@@ -170,16 +170,20 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("shape", ((1_000_000, 100, 3), (100_003, 256, 5),
                                    (37, 5, 3), (0, 130, 1)))
 def test_splits_fill_the_card_and_depend_on_shape_only(shape):
+    """The psi2 N-splits keep the pair blocks in one wave of the resident
+    blocks (here 4 a multiprocessor on 132), at least 2 a multiprocessor at
+    the paper's shape; the psiY splits about TARGET_BLOCKS blocks."""
     N, M, D = shape
-    P2, PY = tss.splits(N, M, D)
+    geo = tss.Geometry(pairs_per_block=1024, blocks_per_sm=4, run=128, group=1)
+    P2, PY = tss.splits(N, M, D, geo, 132)
     assert P2 >= 1 and PY >= 1
-    assert tss.splits(N, M, D) == (P2, PY)
-    tiles = -(-M // tss.TILE)
-    blocks2 = tiles * (tiles + 1) // 2 * P2
+    assert tss.splits(N, M, D, geo, 132) == (P2, PY)
+    blocks2 = tss.pair_blocks(M, geo.pairs_per_block) * P2
+    assert P2 == 1 or blocks2 <= 4 * 132  # one wave
     if N >= 1_000_000:  # the paper's shape: at least 2 blocks per SM
         assert blocks2 >= 2 * 132
     # no N-split shorter than one staging run (except a lone one)
-    assert P2 == 1 or N // P2 >= tss.STAGE
+    assert P2 == 1 or N // P2 >= geo.run
     assert PY == 1 or N // PY >= tss.Y_STAGE
 
 

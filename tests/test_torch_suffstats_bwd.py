@@ -126,8 +126,10 @@ def test_kernel_only_backward_refuses_cpu_tensors():
 @pytest.mark.parametrize("shape", ((1_000_000, 100), (100_003, 256), (1, 5)))
 def test_bwd_splits_depend_on_shape_only(shape):
     N, M = shape
-    P2, PZ = tss.bwd_splits(N, M)
-    assert (P2, PZ) == tss.bwd_splits(N, M) and P2 >= 1 and PZ >= 1
+    geo = tss.Geometry(pairs_per_block=1024, blocks_per_sm=2, run=32, group=4)
+    P2, PZ = tss.bwd_splits(N, M, geo, 132)
+    assert (P2, PZ) == tss.bwd_splits(N, M, geo, 132) and P2 >= 1 and PZ >= 1
+    assert P2 == 1 or N // P2 >= geo.run
     assert PZ == 1 or N // PZ >= tss.Z_STAGE
 
 
