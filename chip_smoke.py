@@ -75,11 +75,24 @@ Phases (any failure exits non-zero and prints no result):
    `mesh=` facade, after which the global parameters are bitwise equal on
    both ranks. Then one rank in an NCCL group fits one step. Every child
    is joined with a timeout; a child's failure fails the run.
-9. Times, with the card's name and power limit: each kernel and its plain
-   version at the paper's shape (median of CUDA-event timings), the
+9. Float32 repeatability: each facade x backend fitted at the paper's
+   shape in float32 from its own init, twice in this process from one init
+   and once in a fresh spawned process; inits, fitted parameters and
+   logged losses must be bitwise equal (where they are not, a fresh process
+   fits them again under torch.use_deterministic_algorithms(True) with
+   CUBLAS_WORKSPACE_CONFIG set, to name the op).
+10. Every kernel at Q = 20 (N = 20,000, M = 64) against its plain version,
+   both dtypes, two launches bitwise equal; then bfloat16 and float16
+   inputs through ops.suffstats, psi1, psi2 and kfu, forward and reverse,
+   through the kernels in float32, against the float32 plain versions.
+11. Times, with the card's name and power limit: each kernel and its plain
+   version at the paper's shape (median of CUDA-event timings; a kernel's
+   as one launch an event pair, its `ms`, and over 10 launches back to
+   back, divided by 10, its `rate_ms`), the
    kernels' bounds, the exponentials B1-B4's launch geometry evaluates per
    datapoint at both kernel shapes against the M (M + 1) / 2 pairs (and M
-   psi1 columns) the statistics need (`[slots]` lines), the SGPR state
+   psi1 columns) the statistics need, and B5-B7's runs, tiles, shared
+   memory and grids (`[slots]` lines), the SGPR state
    build through "pallas" and "fused",
    predict p50 at B = 1 and B = 256, and the median training-step time
    after the first step for every model and dtype (the two-rank step is
@@ -95,6 +108,7 @@ import datetime
 import inspect
 import json
 import multiprocessing
+import os
 import re
 import shutil
 import statistics
@@ -1301,7 +1315,218 @@ def phase_data_parallel() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: times and the bounds
+# phase 9: float32 fits repeat bit for bit
+# ---------------------------------------------------------------------------
+
+REPEAT_MODELS = ("gplvm", "sgpr")
+REPEAT_BACKENDS = ("fused", "pallas")
+
+
+def _facade(key: str, backend: str):
+    if key == "gplvm":
+        return BayesianGPLVM(M=PAPER[1], Q=1, backend=backend, device="cuda")
+    return SparseGPRegression(M=PAPER[1], backend=backend, device="cuda")
+
+
+def _repeat_args(data: dict, key: str) -> tuple:
+    dt = torch.float32
+    if key == "gplvm":
+        return (_as(data["Y_lvm"], dt),)
+    return _as(data["X"], dt), _as(data["Y"], dt)
+
+
+def _fit_from(key: str, backend: str, args: tuple, init: dict):
+    model = _facade(key, backend).fit(*args, steps=TRAIN_STEPS, log_every=1,
+                                      params=tree_map(torch.clone, init))
+    torch.cuda.synchronize()
+    return model
+
+
+def _repeat_child(out: str, deterministic: bool) -> None:
+    """A fresh process's side of phase 9 (a spawned child on cuda:0): the
+    data again from the seed, then each facade x backend's init and one
+    float32 fit from it, saved to `out`. `deterministic`: with
+    CUBLAS_WORKSPACE_CONFIG set before any CUDA work (it shrinks cuBLAS's
+    workspace, so only such a child sets it) and under
+    torch.use_deterministic_algorithms(True), two fits each instead, and
+    the leaves in which they differ or the error that names an op with no
+    deterministic variant."""
+    if deterministic:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+    torch.cuda.set_device(0)
+    data = serving_data(PAPER[0], PAPER[1])
+    res = {}
+    for key in REPEAT_MODELS:
+        args = _repeat_args(data, key)
+        for backend in REPEAT_BACKENDS:
+            init = _facade(key, backend).init_params(*args)
+            if deterministic:
+                try:
+                    fits = [_fit_from(key, backend, args, init) for _ in range(2)]
+                    res[key, backend] = _differing(fits[0].params, fits[1].params) or "none"
+                except RuntimeError as e:
+                    res[key, backend] = str(e)
+            else:
+                fit = _fit_from(key, backend, args, init)
+                res[key, backend] = {"init": _cpu(init), "params": _cpu(fit.params),
+                                     "history": fit.history}
+    torch.save(res, out)
+
+
+def _repeat_in_child(deterministic: bool) -> dict:
+    """`_repeat_child`'s results from a spawned process, joined with a timeout."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "child.pt")
+        proc = multiprocessing.get_context("spawn").Process(target=_repeat_child,
+                                                            args=(path, deterministic))
+        proc.start()
+        proc.join(DP_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(30)
+        check(proc.exitcode == 0, f"the repeatability child exited with {proc.exitcode}")
+        return torch.load(path)
+
+
+def _differing(a: dict, b: dict) -> list:
+    """Names of the leaves of two parameter trees that are not bitwise
+    equal (compared on the CPU)."""
+    na, nb = _named(_cpu(a)), _named(_cpu(b))
+    return [k for k in na if not torch.equal(na[k], nb[k])]
+
+
+def phase_repeatability(data: dict) -> dict:
+    """Float32 fits of each facade x backend at the paper's shape, from
+    their own init: two in this process from one init, and one in a fresh
+    spawned process from its own (its data rebuilt from the seed). Every
+    fitted parameter and every logged loss must be bitwise equal, and so
+    must the two processes' inits. Where they are not, a fresh process fits
+    each twice again under torch.use_deterministic_algorithms(True), which
+    names an op that has no deterministic variant. Returns (model, backend)
+    -> the leaves that differ."""
+    child = _repeat_in_child(deterministic=False)
+    failed, out = [], {}
+    for key in REPEAT_MODELS:
+        args = _repeat_args(data, key)
+        for backend in REPEAT_BACKENDS:
+            what = f"float32 {key} {backend}"
+            init = _facade(key, backend).init_params(*args)
+            fits = [_fit_from(key, backend, args, init) for _ in range(2)]
+            theirs = child[key, backend]
+            diff = {"init, this process vs a fresh one": _differing(init, theirs["init"]),
+                    "two fits from one init": _differing(fits[0].params, fits[1].params),
+                    "fit, this process vs a fresh one": _differing(fits[0].params,
+                                                                   theirs["params"])}
+            same_losses = fits[0].history == fits[1].history == theirs["history"]
+            for name, leaves in diff.items():
+                log(f"[repeat] {what}: {name}: leaves that differ: {leaves or 'none'}")
+            log(f"[repeat] {what}: the {TRAIN_STEPS} logged losses of the three fits "
+                f"{'are bitwise equal' if same_losses else 'differ'}")
+            if any(diff.values()) or not same_losses:
+                failed.append((key, backend))
+            out[key, backend] = diff
+    if failed:
+        again = _repeat_in_child(deterministic=True)
+        for key, backend in failed:
+            log(f"[repeat] float32 {key} {backend}, a fresh process under "
+                f"use_deterministic_algorithms: {again[key, backend]}")
+    check(not failed, "float32 fits are not bitwise repeatable: "
+          + ", ".join(f"{k} {b}" for k, b in failed))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: every kernel above Q = 16, and half precision through the ops
+# ---------------------------------------------------------------------------
+
+LARGE_Q = (20_000, 64, 20, 3)  # N, M, Q, D
+HALF_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3}  # one rounding to the half type
+
+
+def large_q_inputs(N, M, Q, D, seed=SEED):
+    """kernel_inputs with lengthscales grown by sqrt(Q): a 20-term exponent
+    keeps the statistics well above underflow."""
+    x = kernel_inputs(N, M, Q, D, True, seed)
+    x[5] = x[5] * float(np.sqrt(Q))
+    return x
+
+
+def phase_large_q() -> dict:
+    """All seven kernels at Q = 20 (the run-time-Q instances; B1-B4's wide
+    pair and point passes, B6's chunked moments) against their plain
+    versions in float64 on the card, both dtypes, two launches bitwise
+    equal, then timed. Returns the max relative error per (kernel, dtype)."""
+    N, M, Q, D = LARGE_Q
+    mu, S, Y, Z, v, l = large_q_inputs(N, M, Q, D)
+    g2, gY = bwd_cotangents(M, D)
+    g = random_g(N, M)
+    cases = {"suffstats_fwd": (ss.suffstats_cuda, ss.suffstats_fused_plain, (mu, S, Y, Z, v, l)),
+             "suffstats_bwd": (ss.suffstats_bwd_cuda, ss.suffstats_vjp_plain,
+                               (mu, S, Y, Z, v, l, g2, gY)),
+             "psi2_fwd": (p2.psi2_cuda, p2.psi2_plain, (mu, S, Z, v, l)),
+             "psi2_bwd": (ss.psi2_bwd_cuda, ss.psi2_vjp_plain, (mu, S, Z, v, l, g2)),
+             "psi1_fwd": (p1.psi1_cuda, p1.psi1_plain, (mu, S, Z, v, l)),
+             "psi1_bwd": (ss.psi1_bwd_cuda, ss.psi1_vjp_plain, (mu, S, Z, v, l, g)),
+             "kfu_fwd": (kf.kfu_cuda, kf.kfu_plain, (mu, Z, v, l))}
+    saved, errs = counts(), {}
+    for name, (kernel, plain, args) in cases.items():
+        want = _as_tuple(plain(*args))
+        for dt, tol in TOL.items():
+            xs = [a.to(dt) for a in args]
+            got, again = _as_tuple(kernel(*xs)), _as_tuple(kernel(*xs))
+            torch.cuda.synchronize()
+            r = max(rel_err(a, w) for a, w in zip(got, want))
+            errs[name, dt] = r
+            ms = cuda_ms(lambda: kernel(*xs), reps=5, inner=KERNEL_INNER)
+            log(f"[large-q] {name} N={N} M={M} Q={Q} D={D} {str(dt)[6:]}: max rel err "
+                f"{r:.3e} (tol {tol:g}); {ms:.3f} ms (median of 5 x {KERNEL_INNER} launches)")
+            check(all(bool(torch.isfinite(a).all()) for a in got), f"Q={Q} {name} not finite")
+            check(r <= tol, f"Q={Q} {name} {dt}: rel err {r:.3e} > {tol:g}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"Q={Q} {name} {dt}: two runs differ")
+    set_counts(saved)  # checks, not a main path
+    return errs
+
+
+def phase_half() -> None:
+    """bfloat16 and float16 inputs through ops.suffstats, psi1, psi2 and
+    kfu on the card: forward and reverse through the kernels in float32,
+    outputs and cotangents in the half type, each within one rounding of
+    the float32 plain version on the same half-rounded inputs."""
+    N, M, Q, D = 20_003, 100, 1, 3  # float16's range holds psi2's sum over N
+    x64 = kernel_inputs(N, M, Q, D, True)
+    cot = {"g": random_g(N, M), "g2": bwd_cotangents(M, D)[0], "gY": bwd_cotangents(M, D)[1]}
+    opset = {"suffstats": (ops.suffstats, ss.suffstats_fused_plain, ss.suffstats_vjp_plain,
+                           (0, 1, 2, 3, 4, 5), ("g2", "gY")),
+             "psi1": (ops.psi1, p1.psi1_plain, ss.psi1_vjp_plain, (0, 1, 3, 4, 5), ("g",)),
+             "psi2": (ops.psi2, p2.psi2_plain, ss.psi2_vjp_plain, (0, 1, 3, 4, 5), ("g2",)),
+             "kfu": (ops.kfu, kf.kfu_plain, ss.kfu_vjp_plain, (0, 3, 4, 5), ("g",))}
+    saved = counts()
+    for half, tol in HALF_TOL.items():
+        for name, (op, plain, plain_vjp, idx, cots) in opset.items():
+            args = [x64[i].to(half) for i in idx]
+            gs = [cot[c].to(half) for c in cots]
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            before = counts()
+            out = _as_tuple(op(*leaves))
+            grads = torch.autograd.grad(sum((o * g).sum() for o, g in zip(out, gs)), leaves)
+            torch.cuda.synchronize()
+            launched = sum(counts().values()) - sum(before.values())
+            want = _as_tuple(plain(*(a.float() for a in args)))
+            want_g = plain_vjp(*(a.float() for a in args), *(g.float() for g in gs))
+            r = max(rel_err(o, w.to(half)) for o, w in zip((*out, *grads), (*want, *want_g)))
+            log(f"[half] ops.{name} {str(half)[6:]} N={N} M={M}: {launched} kernel launches, "
+                f"outputs and cotangents in {str(half)[6:]}, max rel err {r:.3e} vs the "
+                f"float32 plain version cast back (tol {tol:g})")
+            check(launched == 2, f"{name} {half}: expected a forward and a reverse launch")
+            check(all(t.dtype == half for t in (*out, *grads)), f"{name} {half}: dtypes")
+            check(r <= tol, f"{name} {half}: rel err {r:.3e} > {tol:g}")
+    set_counts(saved)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: times and the bounds
 # ---------------------------------------------------------------------------
 
 def _bound(nbytes: int, flops: int, exps: int, dtype) -> tuple:
@@ -1455,18 +1680,22 @@ def profile_step(model, what: str, top: int = 6) -> None:
         log(f"[profile]   {ms:8.3f} ms  {name[:110]}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event timings after warm-up."""
+def cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
+    """Median over `reps` CUDA-event pairs, each around `inner` calls back to
+    back, of the time a call; after warm-up. With inner > 1 the wrapper's
+    host work overlaps the previous call's device work, as in a training
+    step, and the time is the kernel's rate."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -1492,13 +1721,23 @@ def exp_slots(lib: str, N: int, M: int, Q: int, D: int, dtype) -> str:
             f"a multiprocessor x {sms}")
 
 
+KERNEL_INNER = 10  # back-to-back launches the event pair of a kernel's rate times
+
+
 def _time_kernel(out: dict, key, what: str, kernel, plain, bound: tuple,
                  reps: int) -> None:
+    """`ms`: one launch an event pair, the wrapper's host work included;
+    `rate_ms`: a launch's share of KERNEL_INNER back to back, where that
+    host work overlaps the previous launch's device work."""
     t = cuda_ms(kernel, reps=reps)
+    rate = cuda_ms(kernel, reps=reps, inner=KERNEL_INNER)
     p = cuda_ms(plain, reps=3, warmup=1)
-    out[key] = {"ms": t, "plain_ms": p, "bound_ms": bound[0], "bound_by": bound[1]}
-    log(f"[time] {what}: kernel {t:.3f} ms, plain {p:.3f} ms, bound {bound[0]:.3f} ms "
-        f"({bound[2]}; kernel at {100 * bound[0] / t:.1f} % of it)")
+    out[key] = {"ms": t, "rate_ms": rate, "plain_ms": p, "bound_ms": bound[0],
+                "bound_by": bound[1]}
+    log(f"[time] {what}: kernel {t:.3f} ms one launch, {rate:.3f} ms a launch of "
+        f"{KERNEL_INNER} back to back, plain {p:.3f} ms, bound {bound[0]:.3f} ms "
+        f"({bound[2]}; kernel at {100 * bound[0] / t:.1f} % of it one launch, "
+        f"{100 * bound[0] / rate:.1f} % back to back)")
 
 
 def state_build_ms(data: dict, dtype: torch.dtype, backend: str, reps: int = 5) -> float:
@@ -1521,12 +1760,39 @@ def state_build_ms(data: dict, dtype: torch.dtype, backend: str, reps: int = 5) 
     return statistics.median(times[1:])
 
 
+def cross_slots(lib: str, N: int, M: int, Q: int, D: int, dtype) -> str:
+    """The launch geometry of B5 / B7 (common.cuh: cross_kernel) or B6
+    (psi1_bwd.cu) on this card at this shape: run, tile, shared memory,
+    resident blocks, grid; each evaluates M exponentials a point, once."""
+    t = torch.empty(1, Q, device="cuda", dtype=dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    head = f"[slots] {lib} {str(dtype)[6:]} N={N} M={M} Q={Q} D={D}: "
+    if lib == "psi1_bwd":
+        plan = ss.psi1_bwd_plan(M, Q, t.element_size())
+        bps = ss.psi1_bwd_occupancy(dtype, M, Q, plan, 0)
+        P = ss.psi1_bwd_splits(N, plan.run, bps * sms)
+        return (head + f"runs of {plan.run} points x {plan.cols} columns "
+                f"({-(-M // plan.cols)} tile(s)), {ss.PSI1_BWD_STAGES} stages "
+                f"({ss.PSI1_BWD_STAGES - 1} runs in flight), {plan.lanes} lanes a point, "
+                f"{'fast' if plan.fast else 'general'} path, {plan.smem} bytes of shared "
+                f"memory a block, {bps} resident a multiprocessor x {sms}, grid {P} blocks; "
+                f"{M} exponentials a point for the {M} it needs")
+    cols = p1.cross_cols(M, Q)
+    bps = p1.cross_occupancy(lib, dtype, Q, cols, 0)
+    P = p1.cross_splits(N, M, Q, bps * sms)
+    return (head + f"runs of {p1.cross_run(Q)} points x {cols} columns, "
+            f"{p1.cross_smem(Q, cols, t.element_size(), lib == 'psi1_fwd')} bytes of shared "
+            f"memory a block, {bps} resident a multiprocessor x {sms}, grid {P} splits x "
+            f"{-(-M // cols)} tile(s); {M} exponentials a point for the {M} it needs")
+
+
 def log_slots(lib: str, dtype) -> None:
-    """`exp_slots` of a psi2 kernel at the paper's shape (beside its [time]
-    line) and at the second kernel shape."""
-    log(exp_slots(lib, *PAPER, dtype))
+    """`exp_slots` of a psi2 kernel (`cross_slots` of B5-B7) at the paper's
+    shape (beside its [time] line) and at the second kernel shape."""
+    slots = cross_slots if lib in ("psi1_fwd", "psi1_bwd", "kfu_fwd") else exp_slots
+    log(slots(lib, *PAPER, dtype))
     N, M, Q, D = KERNEL_SHAPES[1]
-    log(exp_slots(lib, N, M, Q, D, dtype))
+    log(slots(lib, N, M, Q, D, dtype))
 
 
 def phase_times(trained: dict, pallas: dict, sgpr: dict, data: dict) -> dict:
@@ -1566,13 +1832,16 @@ def phase_times(trained: dict, pallas: dict, sgpr: dict, data: dict) -> dict:
         _time_kernel(out, (dtype, "psi1_fwd"), f"psi1_fwd {shape}",
                      lambda: p1.psi1_cuda(*xs), lambda: p1.psi1_plain(*xs),
                      psi1_bound_ms(N, M, Q, D, dtype), reps=20)
+        log_slots("psi1_fwd", dtype)
         _time_kernel(out, (dtype, "psi1_bwd"), f"psi1_bwd {shape}",
                      lambda: ss.psi1_bwd_cuda(*xs, gn), lambda: ss.psi1_vjp_plain(*xs, gn),
                      psi1_bwd_bound_ms(N, M, Q, D, dtype), reps=20)
+        log_slots("psi1_bwd", dtype)
         xk = (x[0], *x[3:])  # (X, Z, v, l)
         _time_kernel(out, (dtype, "kfu_fwd"), f"kfu_fwd {shape}",
                      lambda: kf.kfu_cuda(*xk), lambda: kf.kfu_plain(*xk),
                      kfu_bound_ms(N, M, Q, D, dtype), reps=20)
+        log_slots("kfu_fwd", dtype)
         builds = [(b, state_build_ms(data, dtype, b))
                   for b in ("pallas", "fused", "fused", "pallas")]
         log(f"[time] sgpr state build {name} (N={N}, M={M}), in turns: "
@@ -1617,6 +1886,9 @@ def main() -> int:
         pallas = phase("pallas training", phase_pallas, data)
         sgpr = phase("sgpr pallas training", phase_sgpr_pallas, data)
         dp = phase("data parallel", phase_data_parallel)
+        phase("float32 repeatability", phase_repeatability, data)
+        phase("kernels at Q = 20", phase_large_q)
+        phase("half precision through the ops", phase_half)
         times = phase("times", phase_times, trained, pallas, sgpr, data)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -23,13 +23,16 @@ kernel, as in the reference; `backend="jnp"` keeps the name of the
 reference's plain path and computes with plain PyTorch (a chunked loop over
 N for Psi2).
 
-The matrix products run in full float32 for float32 tensors: they rely on
-PyTorch's default `torch.backends.cuda.matmul.allow_tf32 = False`, which a
-caller must not turn on (TF32 keeps ~3 digits, and the float32 bound is
-already fragile).
+The matrix products (psi2 = K_fu^T K_fu, psiY = K_fu^T Y or psi1^T Y, and
+their reverse products) run in full float32 for float32 tensors whatever
+the caller has set: `full_float32_matmul` pins cuBLAS to IEEE float32 while
+they run and gives the caller's setting back afterwards (TF32 keeps ~3
+digits, and the float32 bound is already fragile).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -64,6 +67,75 @@ class SuffStats(NamedTuple):
         carries most of a's mass — hence the serving-layer downdate's
         condition guard (repro_torch.serve.online)."""
         return SuffStats(*(x - y for x, y in zip(a, b)))
+
+
+_precision_lock = threading.Lock()
+_pinned = 0  # threads inside full_float32_matmul
+_saved = None  # the caller's setting, given back when the last one leaves
+
+
+@contextlib.contextmanager
+def full_float32_matmul():
+    """Float32 matrix products in full IEEE float32 (no TF32) inside the
+    block (`torch.backends.cuda.matmul.fp32_precision`, which the legacy
+    `allow_tf32` and `set_float32_matmul_precision` also set); the caller's
+    setting is restored when the last thread inside leaves. Counted under
+    a lock, so concurrent statistics passes (a `GPServer` worker beside its
+    caller, autograd's device thread) never give the setting back while one
+    of them is still inside.
+
+    The setting is process-wide, so two effects reach other threads: while
+    any thread is inside, every other thread's float32 products also run
+    without TF32; and a setting another thread makes meanwhile is kept (the
+    last thread to leave restores the caller's only if the flag still reads
+    "ieee"), except that one made to "ieee" itself is then undone."""
+    global _pinned, _saved
+    matmul = torch.backends.cuda.matmul
+    with _precision_lock:
+        if _pinned == 0:
+            _saved = matmul.fp32_precision
+            matmul.fp32_precision = "ieee"
+        _pinned += 1
+    try:
+        yield
+    finally:
+        with _precision_lock:
+            _pinned -= 1
+            if _pinned == 0 and matmul.fp32_precision == "ieee":
+                matmul.fp32_precision = _saved
+
+
+def _column_major(t: torch.Tensor) -> bool:
+    return t.stride(0) == 1 and t.stride(1) == t.size(0)
+
+
+class _FullPrecisionMatmul(torch.autograd.Function):
+    """a @ b with both directions' products inside `full_float32_matmul`.
+    The gradients are PyTorch's own mm backward's, product for product: each
+    comes out in its input's layout (K_fu^T's transposed), so autograd's sum
+    of K_fu's cotangents stays one contiguous add."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with full_float32_matmul():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with full_float32_matmul():
+            if ctx.needs_input_grad[0]:
+                ga = (b @ g.T).T if _column_major(a) else g @ b.T
+            if ctx.needs_input_grad[1]:
+                gb = (g.T @ a).T if _column_major(b) else a.T @ g
+        return ga, gb
+
+
+def stat_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for the statistics, never in TF32 (`full_float32_matmul`)."""
+    return _FullPrecisionMatmul.apply(a, b)
 
 
 def checkpointed(fn, *args):
@@ -113,7 +185,7 @@ def exact_stats_rbf(kern_params, X, Y, Z, *, backend: str = "jnp",
             Kfu = ops.kfu(X, Z, variance, lengthscale, bwd_backend=bwd_backend)
         else:
             Kfu = ref.kfu_rbf(X, Z, variance, lengthscale)
-        psi2, psiY = Kfu.T @ Kfu, Kfu.T @ Y
+        psi2, psiY = stat_matmul(Kfu.T, Kfu), stat_matmul(Kfu.T, Y)
     return SuffStats(psi0=X.shape[0] * variance, psi2=psi2, psiY=psiY,
                      yy=(Y * Y).sum(), n=_count(X))
 
@@ -176,11 +248,11 @@ def expected_stats_rbf(kern_params, mu, S, Y, Z, *, backend: str = "jnp",
                         bwd_backend=bwd_backend)
         psi2 = ops.psi2(mu, S, Z, variance, lengthscale,
                         bwd_backend=bwd_backend)
-        psiY = psi1.T @ Y
+        psiY = stat_matmul(psi1.T, Y)
     else:
         psi1 = ref.psi1_rbf(mu, S, Z, variance, lengthscale)
         psi2 = _psi2_rbf_chunked(mu, S, Z, variance, lengthscale,
                                  chunk=psi2_chunk)
-        psiY = psi1.T @ Y
+        psiY = stat_matmul(psi1.T, Y)
     return SuffStats(psi0=mu.shape[0] * variance, psi2=psi2, psiY=psiY,
                      yy=(Y * Y).sum(), n=_count(mu))

@@ -142,6 +142,100 @@ struct Flag {
   static constexpr bool value = B;
 };
 
+// ---------------------------------------------------------------------------
+// asynchronous copies, global -> shared (cp.async; Ampere and later)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// one element (4 or 8 bytes), through L1
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+  }
+}
+
+// 16 aligned bytes, past L1 (streamed data)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// elements of T in 16 bytes
+template <typename T>
+__host__ __device__ constexpr int vec_elems() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+// where src[0] lands in a staged span: its address's offset within 16
+// bytes, in elements, so that 16-byte chunks of global memory land on
+// 16-byte boundaries of shared memory
+template <typename T>
+__device__ __forceinline__ int span_shift(const T* src) {
+  return static_cast<int>((reinterpret_cast<unsigned long long>(src) & 15) / sizeof(T));
+}
+
+// shared-memory elements a staged span of `count` elements can take:
+// count plus the largest shift, in whole 16-byte chunks
+template <typename T>
+__host__ __device__ constexpr int span_room(int count) {
+  return (count + 2 * vec_elems<T>() - 2) / vec_elems<T>() * vec_elems<T>();
+}
+
+// Issue the asynchronous copy of src[0, count) to dst[shift, shift + count),
+// shift = span_shift(src), dst 16-byte aligned: single elements up to the
+// first 16-byte boundary of src, then 16-byte chunks, then single elements.
+// Every thread of the block takes part; the caller commits the group.
+template <typename T>
+__device__ __forceinline__ void copy_span(T* dst, const T* src, int count) {
+  constexpr int V = vec_elems<T>();
+  const int shift = span_shift(src);
+  const int head = shift == 0 ? 0 : min(count, V - shift);
+  const int chunks = (count - head) / V;
+  const int tail0 = head + chunks * V;
+  for (int k = threadIdx.x; k < head; k += kThreads) cp_async_elem(dst + shift + k, src + k);
+  for (int c = threadIdx.x; c < chunks; c += kThreads)
+    cp_async16(dst + shift + head + c * V, src + head + c * V);
+  for (int k = tail0 + threadIdx.x; k < count; k += kThreads) cp_async_elem(dst + shift + k, src + k);
+}
+
+// a streaming store (st.global.cs): written once, not read back soon
+__device__ __forceinline__ void store_streaming(float* p, float x) { __stcs(p, x); }
+__device__ __forceinline__ void store_streaming(double* p, double x) { __stcs(p, x); }
+
+// out[i] = sum_{p = 0..P-1} part[p * total + i] for double partials, in
+// that order, rounded once to T
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+reduce_double_kernel(const double* __restrict__ part, T* __restrict__ out, int P,
+                     size_t total) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= total) return;
+  double acc = 0.0;
+  for (int p = 0; p < P; ++p) acc += part[static_cast<size_t>(p) * total + idx];
+  out[idx] = static_cast<T>(acc);
+}
+
+template <typename T>
+cudaError_t reduce_double(const double* part, T* out, int P, size_t total,
+                          cudaStream_t stream) {
+  reduce_double_kernel<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
+                            kThreads, 0, stream>>>(part, out, P, total);
+  return cudaGetLastError();
+}
+
 // [begin, end) of the N axis owned by split p of P (sizes differ by <= 1)
 __device__ __forceinline__ void split_range(int N, int P, int p, int* begin,
                                             int* end) {
@@ -270,27 +364,31 @@ cudaError_t reduce_packed(const T* part, T* out, int P, int slabs, int M,
 // psi2-only forward (psi2_fwd.cu)
 // ---------------------------------------------------------------------------
 
+// pair slots a thread of a forward psi2 block owns: kFwdSlots, or one
+// above Q = 16, where the run-time-Q instance's zbar for kFwdSlots slots
+// would outgrow shared memory in double
+__host__ __device__ constexpr int fwd_slots(int Q) { return Q <= 16 ? kFwdSlots : 1; }
+
 // dynamic shared memory of a forward psi2 block: exp2_neg's table, the
 // staged run (mu, r', lg') and, with a run-time Q, the slots' zbar
 template <typename T>
 constexpr size_t psi2_smem_bytes(int Q, bool zbar_in_smem) {
   return sizeof(double) * 32 +
          sizeof(T) * (2 * kStage * Q + kStage +
-                      (zbar_in_smem ? static_cast<size_t>(kFwdSlots) * Q * kThreads : 0));
+                      (zbar_in_smem ? static_cast<size_t>(fwd_slots(Q)) * Q * kThreads : 0));
 }
 
 // part[p, t] = sum over split p's datapoints of
 // exp2_neg(lg' - sum_q (mu_q - zbar_tq)^2 r'_q) for the pairs t of pair block
 // blockIdx.x (grid.x = pair blocks, grid.y = N-splits).
 // QC > 0: Q is the compile-time QC (zbar in registers);
-// QC == 0: Q (<= 16) is read at run time (zbar in shared memory).
+// QC == 0: Q is read at run time (zbar in shared memory). K slots a thread.
 // Sums run in two levels: each staged run in T, the total in double.
-template <typename T, int QC>
+template <typename T, int QC, int K>
 __global__ void __launch_bounds__(kThreads)
 psi2_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
                     const T* __restrict__ Z, const T* __restrict__ l2,
                     T* __restrict__ part, int N, int M, int Q, int P) {
-  constexpr int K = kFwdSlots;
   constexpr int QA = QC > 0 ? QC : 1;
   const int Qn = QC > 0 ? QC : Q;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -399,11 +497,13 @@ using Psi2Kernel = void (*)(const T*, const T*, const T*, const T*, T*, int, int
 template <typename T>
 Psi2Kernel<T> psi2_kernel(int Q) {
   switch (Q) {
-    case 1: return psi2_partial_kernel<T, 1>;
-    case 2: return psi2_partial_kernel<T, 2>;
-    case 3: return psi2_partial_kernel<T, 3>;
-    case 4: return psi2_partial_kernel<T, 4>;
-    default: return psi2_partial_kernel<T, 0>;
+    case 1: return psi2_partial_kernel<T, 1, kFwdSlots>;
+    case 2: return psi2_partial_kernel<T, 2, kFwdSlots>;
+    case 3: return psi2_partial_kernel<T, 3, kFwdSlots>;
+    case 4: return psi2_partial_kernel<T, 4, kFwdSlots>;
+    default:
+      return fwd_slots(Q) == kFwdSlots ? psi2_partial_kernel<T, 0, kFwdSlots>
+                                       : psi2_partial_kernel<T, 0, 1>;
   }
 }
 
@@ -413,7 +513,8 @@ cudaError_t psi2_partials(const T* mu, const T* S, const T* Z, const T* l2,
                           T* part, int N, int M, int Q, int P,
                           cudaStream_t stream) {
   const int npairs = M * (M + 1) / 2;
-  const dim3 grid((npairs + kFwdSlots * kThreads - 1) / (kFwdSlots * kThreads), P);
+  const int per = fwd_slots(Q) * kThreads;
+  const dim3 grid((npairs + per - 1) / per, P);
   const size_t smem = psi2_smem_bytes<T>(Q, Q > 4);
   const Psi2Kernel<T> fn = psi2_kernel<T>(Q);
   const cudaError_t err = allow_smem(fn, smem);
@@ -426,7 +527,7 @@ cudaError_t psi2_partials(const T* mu, const T* S, const T* Z, const T* l2,
 // out = [pairs per block, resident blocks per multiprocessor, staged run, 1]
 template <typename T>
 cudaError_t psi2_geometry(int Q, int* out) {
-  out[0] = kFwdSlots * kThreads;
+  out[0] = fwd_slots(Q) * kThreads;
   out[2] = kStage;
   out[3] = 1;
   return blocks_per_sm(psi2_kernel<T>(Q), psi2_smem_bytes<T>(Q, Q > 4), &out[1]);
@@ -436,79 +537,158 @@ cudaError_t psi2_geometry(int Q, int* out) {
 // the (N, M) cross statistics: psi1 (psi1_fwd.cu) and K_fu (kfu_fwd.cu)
 // ---------------------------------------------------------------------------
 
-constexpr int kCrossPts = 64;  // datapoints per block
+// datapoints a block stages per run (fewer for a large Q, so that two
+// buffers of per-point terms stay small)
+__host__ __device__ constexpr int cross_run(int Q) { return Q <= 16 ? 128 : 32; }
 
-// out[n, m] = v exp(lg_n - 1/2 sum_q (x_nq - z_mq)^2 b_nq) for a run of
-// kCrossPts points (grid.x) and a tile of `cols` inducing points (grid.y).
-// kS (psi1): b_nq = 1 / (l2_q + S_nq) and lg_n = -1/2 sum_q log1p(S_nq / l2_q),
-// staged per point; !kS (K_fu): b_q = 1 / l2_q and lg = 0, S is not read.
-// Each block stages its Z tile and points in shared memory, then its threads
-// walk the tile's outputs in row-major order, so neighbouring threads store
-// neighbouring addresses (with cols == M a block's outputs are one
-// contiguous run); v multiplies in the kernel.
+// dynamic shared memory of a cross block: exp2_neg's table, the Z tile
+// transposed, 1 / l2 (K_fu) and two buffers of a run's per-point terms
 template <typename T, bool kS>
+__host__ __device__ inline size_t cross_smem_bytes(int Q, int cols) {
+  const size_t per_buf = static_cast<size_t>(cross_run(Q)) * (kS ? 2 * Q + 1 : Q);
+  return 32 * sizeof(double) + sizeof(T) * (static_cast<size_t>(cols) * Q + Q + 2 * per_buf);
+}
+
+// out[n, m] = v exp(lg_n - 1/2 sum_q (x_nq - z_mq)^2 b_nq) for the N-split
+// blockIdx.x of P and the tile of `cols` inducing points blockIdx.y.
+// kS (psi1): b_nq = 1 / (l2_q + S_nq) and lg_n = -1/2 sum_q log1p(S_nq / l2_q);
+// !kS (K_fu): b_q = 1 / l2_q and lg = 0, S is not read. A persistent block
+// stages its Z tile once (transposed, so neighbouring threads read
+// neighbouring banks), then walks its split in runs of cross_run(Q) points:
+// one thread a point stages the next run's terms (base-2: log2(e) folded
+// in) into the other buffer while the block computes this run's outputs in
+// row-major order, thread t the outputs t, t + kThreads, ... (its row and
+// column advanced by adds, no division), each stored once with a streaming
+// store; neighbouring threads store neighbouring addresses. One barrier a
+// run. QC > 0: Q is the compile-time QC; QC == 0: Q at run time.
+template <typename T, bool kS, int QC>
 __global__ void __launch_bounds__(kThreads)
 cross_kernel(const T* __restrict__ x, const T* __restrict__ S,
              const T* __restrict__ Z, const T* __restrict__ l2,
              const T* __restrict__ variance, T* __restrict__ out, int N, int M,
-             int Q, int cols) {
+             int Q, int cols, int P) {
+  const int Qn = QC > 0 ? QC : Q;
+  const int R = cross_run(Qn);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_z = reinterpret_cast<T*>(smem_raw);        // [cols][Q]
-  T* s_x = s_z + static_cast<size_t>(cols) * Q;   // [kCrossPts][Q]
-  T* s_b = s_x + kCrossPts * Q;                   // kS: [kCrossPts][Q]; else [Q]
-  T* s_lg = s_b + (kS ? kCrossPts * Q : Q);       // kS: [kCrossPts]
+  double* s_tab = reinterpret_cast<double*>(smem_raw);    // [32] (double only)
+  T* s_zt = reinterpret_cast<T*>(s_tab + 32);             // [Q][W]
+  T* s_bq = s_zt + static_cast<size_t>(cols) * Qn;        // !kS: [Q]
+  T* s_buf = s_bq + Qn;                                    // 2 x ([R][Q] x; kS: [R][Q] bx, [R] lg)
+  const int per_buf = R * (kS ? 2 * Qn + 1 : Qn);
 
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kCrossPts;
+  const int p = blockIdx.x;
   const int m0 = blockIdx.y * cols;
-  const int pts = min(kCrossPts, N - n0);
-  const int width = min(cols, M - m0);
-  for (int i = tid; i < width * Q; i += kThreads)
-    s_z[i] = Z[static_cast<size_t>(m0) * Q + i];
-  if constexpr (kS) {
-    if (tid < pts) {
-      const size_t n = static_cast<size_t>(n0 + tid);
-      T lg = T(0);
-      for (int q = 0; q < Q; ++q) {
-        const T s = S[n * Q + q];
-        const T l2q = l2[q];
-        s_x[tid * Q + q] = x[n * Q + q];
-        s_b[tid * Q + q] = T(1) / (l2q + s);
-        lg += log1p_t(s / l2q);
-      }
-      s_lg[tid] = T(-0.5) * lg;
-    }
-  } else {
-    for (int i = tid; i < pts * Q; i += kThreads)
-      s_x[i] = x[static_cast<size_t>(n0) * Q + i];
-    if (tid < Q) s_b[tid] = T(1) / l2[tid];
+  const int W = min(cols, M - m0);
+  int n0, n1;
+  split_range(N, P, p, &n0, &n1);
+  const T kx = T(0.5 * kLog2e * exp2_units<T>());
+  const T kl = T(-0.5 * kLog2e * exp2_units<T>());
+  load_exp2_table<T>(s_tab);
+  for (int k = tid; k < W * Qn; k += kThreads) {
+    const int m = k / Qn, q = k - m * Qn;
+    s_zt[q * W + m] = Z[static_cast<size_t>(m0) * Qn + k];
   }
-  __syncthreads();
+  if constexpr (!kS)
+    for (int q = tid; q < Qn; q += kThreads) s_bq[q] = kx / l2[q];
 
-  const T v = *variance;
-  for (int i = tid; i < pts * width; i += kThreads) {
-    const int p = i / width;
-    const int c = i - p * width;
-    T e = T(0);
-    if constexpr (kS) e = s_lg[p];
-    for (int q = 0; q < Q; ++q) {
-      const T d = s_x[p * Q + q] - s_z[c * Q + q];
-      e -= T(0.5) * d * d * s_b[kS ? p * Q + q : q];
+  // the per-point terms of points [base, base + cnt) into buf
+  auto prep = [&](int base, int cnt, T* buf) {
+    for (int i = tid; i < cnt; i += kThreads) {
+      const size_t n = static_cast<size_t>(base + i);
+      T lg = T(0);
+      for (int q = 0; q < Qn; ++q) {
+        buf[i * Qn + q] = x[n * Qn + q];
+        if constexpr (kS) {
+          const T s = S[n * Qn + q];
+          const T l2q = __ldg(l2 + q);
+          buf[(R + i) * Qn + q] = kx / (l2q + s);
+          lg += log1p_t(s / l2q);
+        }
+      }
+      if constexpr (kS) buf[2 * R * Qn + i] = kl * lg;
     }
-    out[static_cast<size_t>(n0 + p) * M + m0 + c] = v * exp_t(e);
+  };
+
+  const int runs = (n1 - n0 + R - 1) / R;
+  prep(n0, min(R, n1 - n0), s_buf);
+  const int i_first = tid / W, m_first = tid - i_first * W;
+  const int di = kThreads / W, dm = kThreads - di * W;
+  const size_t step = static_cast<size_t>(di) * M + dm;  // offset of the next output
+  const T v = *variance;
+  for (int k = 0; k < runs; ++k) {
+    // buffer k & 1 is staged; buffer (k + 1) & 1 was last read in run k - 1
+    __syncthreads();
+    const int base = n0 + k * R, cnt = min(R, n1 - base);
+    if (k + 1 < runs) prep(base + R, min(R, n1 - base - R), s_buf + ((k + 1) & 1) * per_buf);
+    const T* xs = s_buf + (k & 1) * per_buf;
+    const T* bxs = xs + R * Qn;
+    const T* lgs = xs + 2 * R * Qn;
+    T* o = out + static_cast<size_t>(base) * M + m0;
+    size_t off = static_cast<size_t>(i_first) * M + m_first;
+    for (int i = i_first, m = m_first; i < cnt;) {
+      T e = T(0);
+      if constexpr (kS) e = lgs[i];
+      if constexpr (QC > 0) {
+#pragma unroll
+        for (int q = 0; q < QC; ++q) {
+          const T d = xs[i * QC + q] - s_zt[q * W + m];
+          e = fma_t(-(d * (kS ? bxs[i * QC + q] : s_bq[q])), d, e);
+        }
+      } else {
+        for (int q = 0; q < Qn; ++q) {
+          const T d = xs[i * Qn + q] - s_zt[q * W + m];
+          e = fma_t(-(d * (kS ? bxs[i * Qn + q] : s_bq[q])), d, e);
+        }
+      }
+      store_streaming(o + off, v * exp2_neg(e, s_tab));
+      m += dm;
+      i += di;
+      off += step;
+      if (m >= W) {
+        m -= W;
+        ++i;
+        off += M - W;
+      }
+    }
   }
 }
 
+template <typename T>
+using CrossKernel = void (*)(const T*, const T*, const T*, const T*, const T*, T*, int,
+                             int, int, int, int);
+
+template <typename T, bool kS>
+CrossKernel<T> cross_kernel_for(int Q) {
+  switch (Q) {
+    case 1: return cross_kernel<T, kS, 1>;
+    case 2: return cross_kernel<T, kS, 2>;
+    case 3: return cross_kernel<T, kS, 3>;
+    case 4: return cross_kernel<T, kS, 4>;
+    default: return cross_kernel<T, kS, 0>;
+  }
+}
+
+// grid (P N-splits, ceil(M / cols) tiles)
 template <typename T, bool kS>
 cudaError_t cross_fwd(const T* x, const T* S, const T* Z, const T* l2,
-                      const T* variance, T* out, int N, int M, int Q, int cols,
+                      const T* variance, T* out, int N, int M, int Q, int cols, int P,
                       cudaStream_t stream) {
-  const dim3 grid((N + kCrossPts - 1) / kCrossPts, (M + cols - 1) / cols);
-  const size_t smem = sizeof(T) * (static_cast<size_t>(cols) * Q + kCrossPts * Q
-                                   + (kS ? kCrossPts * Q + kCrossPts : Q));
-  cross_kernel<T, kS><<<grid, kThreads, smem, stream>>>(x, S, Z, l2, variance, out,
-                                                        N, M, Q, cols);
+  const dim3 grid(P, (M + cols - 1) / cols);
+  const size_t smem = cross_smem_bytes<T, kS>(Q, cols);
+  const CrossKernel<T> fn = cross_kernel_for<T, kS>(Q);
+  const cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  fn<<<grid, kThreads, smem, stream>>>(x, S, Z, l2, variance, out, N, M, Q, cols, P);
   return cudaGetLastError();
+}
+
+// out = [resident blocks a multiprocessor, shared-memory bytes a block]
+template <typename T, bool kS>
+cudaError_t cross_geometry(int Q, int cols, int* out) {
+  const size_t smem = cross_smem_bytes<T, kS>(Q, cols);
+  out[1] = static_cast<int>(smem);
+  return blocks_per_sm(cross_kernel_for<T, kS>(Q), smem, &out[0]);
 }
 
 }  // namespace

@@ -17,13 +17,21 @@
 //   point pass, one thread per datapoint: sums a point's pair-block partials
 //     in a fixed order, and forms dmu, dS (and dY with the psi1 branch) and
 //     block partials of dl and v dv.
+//
+// Q = 1..4 are compile-time instances; any larger Q that shared memory
+// holds runs the run-time-Q ones: the pair pass sums A and the per-point
+// moments kQChunkPair q's a pass over its split (evaluating each exponential
+// once a pass), the point pass kMaxQ q's a pass over the point's own terms.
 #pragma once
 
 #include "common.cuh"
 
 namespace {
 
+// run-time Q: q's whose moments one point pass sums
 constexpr int kMaxQ = 16;
+// run-time Q: q's whose A sums and moments one pair pass over the split takes
+constexpr int kQChunkPair = 8;
 // point pass: dY columns accumulated per sweep over m
 constexpr int kDChunk = 8;
 constexpr int kBlockWarps = kThreads / 32;
@@ -252,9 +260,38 @@ pair_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   }
 }
 
-// the run-time-Q instance (Q <= kMaxQ): one slot a thread, its zbar,
-// (z_a - z_b)^2 and A sums in shared memory, each point's 1 + 3Q sums
-// reduced by a plain xor tree kind by kind
+// the block's 8 warp totals of each (staged point, kind of the pass q0 of
+// pair_kernel_rt), summed in warp order and written to pt[pb, c, base + i]
+// at the point's full kind c (t only in the pass q0 = 0)
+template <typename T>
+__device__ __forceinline__ void store_pass_sums(const T* s_w, T* pt, int pb, int Q, int q0,
+                                                int R, int N, int base, int cnt) {
+  constexpr int QB = kQChunkPair, CB = 1 + 3 * QB;
+  __syncthreads();
+  for (int j = threadIdx.x; j < cnt * CB; j += kThreads) {
+    const int cb = j / cnt;
+    const int i = j - cb * cnt;
+    int c = 0;  // t, written in the first pass
+    if (cb == 0) {
+      if (q0 != 0) continue;
+    } else {
+      const int kind = (cb - 1) / QB;  // sd, sv, tz
+      const int q = q0 + (cb - 1) - kind * QB;
+      if (q >= Q) continue;
+      c = 1 + kind * Q + q;
+    }
+    T s = s_w[i * CB + cb];
+#pragma unroll
+    for (int w = 1; w < kBlockWarps; ++w) s += s_w[(w * R + i) * CB + cb];
+    pt[(static_cast<size_t>(pb) * (1 + 3 * Q) + c) * N + base + i] = s;
+  }
+}
+
+// the run-time-Q instance: one slot a thread, zbar of every q in shared
+// memory; the pair sums A and the per-point sums t, sd, sv, tz in passes of
+// kQChunkPair q's over the split, each pass evaluating the exponentials
+// again (P and t in the first), so registers and shared memory hold one
+// pass's q's (Q = 5..8 one pass, 9..16 two)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 pair_kernel_rt(const T* __restrict__ mu, const T* __restrict__ S,
@@ -262,17 +299,14 @@ pair_kernel_rt(const T* __restrict__ mu, const T* __restrict__ S,
                const T* __restrict__ Gw, T* __restrict__ pair_part,
                T* __restrict__ pt, int N, int M, int Q, int P) {
   constexpr int R = pair_run(0);
-  const int C = 1 + 3 * Q;
+  constexpr int QB = kQChunkPair, CB = 1 + 3 * QB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* s_tab = reinterpret_cast<double*>(smem_raw);  // [32] (double only)
-  double* s_accA = s_tab + 32;                          // [2][Q][kThreads] sum, error
-  T* s_zb = reinterpret_cast<T*>(s_accA + 2 * Q * kThreads);  // [Q][kThreads]
-  T* s_zd2 = s_zb + Q * kThreads;                       // [Q][kThreads]
-  T* s_runA = s_zd2 + Q * kThreads;                     // [Q][kThreads]
-  T* s_mu = s_runA + Q * kThreads;                      // [R][Q]
+  T* s_zb = reinterpret_cast<T*>(s_tab + 32);           // [Q][kThreads]
+  T* s_mu = s_zb + Q * kThreads;                        // [R][Q]
   T* s_r = s_mu + R * Q;                                // [R][Q]
   T* s_lg = s_r + R * Q;                                // [R]
-  T* s_w = s_lg + R;                                    // [kBlockWarps][R][C]
+  T* s_w = s_lg + R;                                    // [kBlockWarps][R][CB]
 
   const int npairs = M * (M + 1) / 2;
   const int tid = threadIdx.x;
@@ -287,69 +321,85 @@ pair_kernel_rt(const T* __restrict__ mu, const T* __restrict__ S,
   load_exp2_table<T>(s_tab);
   int a, b;
   pair_of(min(t, npairs - 1), M, &a, &b);
-  for (int q = 0; q < Q; ++q) {
-    const T za = Z[static_cast<size_t>(a) * Q + q];
-    const T zz = Z[static_cast<size_t>(b) * Q + q];
-    s_zb[q * kThreads + tid] = T(0.5) * (za + zz);
-    s_zd2[q * kThreads + tid] = (za - zz) * (za - zz);
-    s_accA[q * kThreads + tid] = s_accA[(Q + q) * kThreads + tid] = 0.0;
-  }
+  for (int q = 0; q < Q; ++q)
+    s_zb[q * kThreads + tid] = T(0.5) * (Z[static_cast<size_t>(a) * Q + q] +
+                                         Z[static_cast<size_t>(b) * Q + q]);
   const T gw = t < npairs ? Gw[static_cast<size_t>(a) * M + b] : T(0);
+  T* out = pair_part + static_cast<size_t>(p) * (1 + Q) * npairs;
 
-  double accP = 0.0, errP = 0.0;
-  for (int base = n0; base < n1; base += R) {
-    const int cnt = min(R, n1 - base);
-    stage_psi2_points(s_mu, s_r, s_lg, mu, S, l2, base, cnt, R, Q);
-    T runP = T(0);
-    for (int q = 0; q < Q; ++q) s_runA[q * kThreads + tid] = T(0);
-    for (int i = 0; i < cnt; ++i) {
-      const T* m_ = s_mu + i * Q;
-      const T* r_ = s_r + i * Q;
-      T E = T(0);
-      if (live) {
-        T e = s_lg[i];
-        for (int q = 0; q < Q; ++q) {
-          const T d = m_[q] - s_zb[q * kThreads + tid];
-          e = fma_t(-(d * r_[q]), d, e);
-        }
-        E = exp2_neg(e, s_tab);
-        runP += E;
-        for (int q = 0; q < Q; ++q) {
-          const T d = m_[q] - s_zb[q * kThreads + tid];
-          s_runA[q * kThreads + tid] = fma_t(E, d * r_[q], s_runA[q * kThreads + tid]);
-        }
-      }
-      const T Tw = gw * E;
-      T* w = s_w + (warp * R + i) * C;
-      const T tsum = warp_sum(Tw);
-      if (lane == 0) w[0] = tsum;
-      for (int q = 0; q < Q; ++q) {
-        const T d = m_[q] - s_zb[q * kThreads + tid];
-        const T Td = Tw * d;
-        const T sd = warp_sum(Td);
-        const T sv = warp_sum(Td * d);
-        const T tz = warp_sum(Tw * s_zd2[q * kThreads + tid]);
-        if (lane == 0) {
-          w[1 + q] = sd;
-          w[1 + Q + q] = sv;
-          w[1 + 2 * Q + q] = tz;
-        }
-      }
+  for (int q0 = 0; q0 < Q; q0 += QB) {
+    T zd2[QB];
+#pragma unroll
+    for (int qq = 0; qq < QB; ++qq) {
+      const int q = min(q0 + qq, Q - 1);
+      const T za = Z[static_cast<size_t>(a) * Q + q], zz = Z[static_cast<size_t>(b) * Q + q];
+      zd2[qq] = (za - zz) * (za - zz);
     }
-    add_to_total<T>(accP, errP, static_cast<double>(runP));
-    for (int q = 0; q < Q; ++q)
-      add_to_total<T>(s_accA[q * kThreads + tid], s_accA[(Q + q) * kThreads + tid],
-                      static_cast<double>(s_runA[q * kThreads + tid]));
-    store_point_sums(s_w, pt, blockIdx.x, C, R, N, base, cnt);
-  }
-
-  if (t < npairs) {
-    T* out = pair_part + static_cast<size_t>(p) * (1 + Q) * npairs;
-    out[t] = static_cast<T>(accP + errP);
-    for (int q = 0; q < Q; ++q)
-      out[static_cast<size_t>(1 + q) * npairs + t] = static_cast<T>(
-          (s_accA[q * kThreads + tid] + s_accA[(Q + q) * kThreads + tid]) /
-          staged_r_scale<T>());
+    double accP = 0.0, errP = 0.0, accA[QB], errA[QB];
+#pragma unroll
+    for (int qq = 0; qq < QB; ++qq) accA[qq] = errA[qq] = 0.0;
+    for (int base = n0; base < n1; base += R) {
+      const int cnt = min(R, n1 - base);
+      stage_psi2_points(s_mu, s_r, s_lg, mu, S, l2, base, cnt, R, Q);
+      T runP = T(0), runA[QB];
+#pragma unroll
+      for (int qq = 0; qq < QB; ++qq) runA[qq] = T(0);
+      for (int i = 0; i < cnt; ++i) {
+        const T* m_ = s_mu + i * Q;
+        const T* r_ = s_r + i * Q;
+        T E = T(0);
+        if (live) {
+          T e = s_lg[i];
+          for (int q = 0; q < Q; ++q) {
+            const T d = m_[q] - s_zb[q * kThreads + tid];
+            e = fma_t(-(d * r_[q]), d, e);
+          }
+          E = exp2_neg(e, s_tab);
+          runP += E;
+#pragma unroll
+          for (int qq = 0; qq < QB; ++qq) {
+            const int q = q0 + qq;
+            if (q < Q) {
+              const T d = m_[q] - s_zb[q * kThreads + tid];
+              runA[qq] = fma_t(E, d * r_[q], runA[qq]);
+            }
+          }
+        }
+        const T Tw = gw * E;
+        T* w = s_w + (warp * R + i) * CB;
+        const T tsum = warp_sum(Tw);
+        if (lane == 0) w[0] = tsum;
+#pragma unroll
+        for (int qq = 0; qq < QB; ++qq) {
+          const int q = q0 + qq;
+          if (q < Q) {
+            const T d = m_[q] - s_zb[q * kThreads + tid];
+            const T Td = Tw * d;
+            const T sd = warp_sum(Td);
+            const T sv = warp_sum(Td * d);
+            const T tz = warp_sum(Tw * zd2[qq]);
+            if (lane == 0) {
+              w[1 + qq] = sd;
+              w[1 + QB + qq] = sv;
+              w[1 + 2 * QB + qq] = tz;
+            }
+          }
+        }
+      }
+      add_to_total<T>(accP, errP, static_cast<double>(runP));
+#pragma unroll
+      for (int qq = 0; qq < QB; ++qq)
+        add_to_total<T>(accA[qq], errA[qq], static_cast<double>(runA[qq]));
+      store_pass_sums(s_w, pt, blockIdx.x, Q, q0, R, N, base, cnt);
+    }
+    if (t < npairs) {
+      if (q0 == 0) out[t] = static_cast<T>(accP + errP);
+#pragma unroll
+      for (int qq = 0; qq < QB; ++qq)
+        if (q0 + qq < Q)
+          out[static_cast<size_t>(1 + q0 + qq) * npairs + t] =
+              static_cast<T>((accA[qq] + errA[qq]) / staged_r_scale<T>());
+    }
   }
 }
 
@@ -372,10 +422,11 @@ template <typename T>
 size_t pair_smem_bytes(int Q) {
   const int qc = compile_q(Q);
   const size_t R = pair_run(qc);
-  const size_t run = sizeof(T) * (2 * R * Q + R + kBlockWarps * R * (1 + 3 * Q));
-  if (qc > 0) return sizeof(double) * 32 + run;
-  return sizeof(double) * (32 + 2 * static_cast<size_t>(Q) * kThreads)
-         + sizeof(T) * 3 * Q * kThreads + run;
+  if (qc > 0)
+    return sizeof(double) * 32 + sizeof(T) * (2 * R * Q + R + kBlockWarps * R * (1 + 3 * Q));
+  return sizeof(double) * 32 +
+         sizeof(T) * (static_cast<size_t>(Q) * kThreads + 2 * R * Q + R +
+                      kBlockWarps * R * (1 + 3 * kQChunkPair));
 }
 
 // pair blocks of the pair pass at (M, Q)
@@ -414,7 +465,48 @@ cudaError_t pair_geometry(int Q, int* out) {
 // point pass: one thread per datapoint
 // ---------------------------------------------------------------------------
 
-// QC > 0: Q is the compile-time QC; QC == 0: Q (<= kMaxQ) read at run time.
+// the point's term q: from registers (compile-time Q) or from shared memory
+// ([Q][kThreads], run-time Q)
+template <int QC, typename T, int QB>
+__device__ __forceinline__ T point_term(const T (&reg)[QB], const T* sm, int q) {
+  if constexpr (QC > 0) {
+    return reg[q];
+  } else {
+    return sm[q * kThreads + threadIdx.x];
+  }
+}
+
+// kind c of a point's per-point sums (src = pt + n), summed over the NPB
+// pair blocks in order, in double
+template <typename T>
+__device__ __forceinline__ T point_sum(const T* src, int NPB, int C, int N, int c) {
+  double acc = 0.0;
+  for (int pb = 0; pb < NPB; ++pb)
+    acc += static_cast<double>(src[(static_cast<size_t>(pb) * C + c) * N]);
+  return static_cast<T>(acc);
+}
+
+// a fixed-order tree over the block of each thread's val, to out[k]; k is
+// block-uniform
+template <typename T>
+__device__ __forceinline__ void block_sum(T* s_red, T val, T* out, int k) {
+  const int tid = threadIdx.x;
+  s_red[tid] = val;
+  __syncthreads();
+  for (int h = kThreads / 2; h > 0; h >>= 1) {
+    if (tid < h) s_red[tid] += s_red[tid + h];
+    __syncthreads();
+  }
+  if (tid == 0) out[k] = s_red[0];
+  __syncthreads();
+}
+
+// QC > 0: Q is the compile-time QC, the point's terms in registers and
+// its moments summed in one pass. QC == 0: Q read at run time, the moments
+// summed kMaxQ q's a pass over the point's own terms (the psi1 branch's
+// exponentials evaluated again each pass, dY and s1 in the first), the
+// point's mu and b for every q in shared memory ([Q][kThreads] each, psi1
+// branch only).
 // kPsi1: with the psi1/psiY branch (the fused reverse pass); without it
 // (the psi2-only reverse pass) Y, gyv and dY are not touched and D is unused.
 // pt: the pair pass's (NPB, 1 + 3Q, N) per-point sums.
@@ -427,130 +519,127 @@ point_kernel(const T* __restrict__ mu, const T* __restrict__ S,
              const T* __restrict__ gyv, const T* __restrict__ pt,
              T* __restrict__ dmu, T* __restrict__ dS, T* __restrict__ dY,
              T* __restrict__ part, int N, int M, int Q, int D, int NPB) {
-  constexpr int QA = QC > 0 ? QC : kMaxQ;
+  constexpr int QB = QC > 0 ? QC : kMaxQ;  // q's a pass
   const int Qn = QC > 0 ? QC : Q;
   __shared__ T s_red[kThreads];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_pm = reinterpret_cast<T*>(smem_raw);  // QC == 0 and kPsi1: [Q][kThreads]
+  T* s_pb = s_pm + static_cast<size_t>(Qn) * kThreads;
   const int tid = threadIdx.x;
   const int n = blockIdx.x * kThreads + tid;
   const bool live = n < N;
   const size_t nn = static_cast<size_t>(live ? n : N - 1);  // dead threads read a real point
   const T w = live ? T(1) : T(0);
 
-  T m_[QA], s_[QA], r[QA], b[QA];
-  T lg1 = T(0);
+  // compile-time Q: the point's mu, S, b = 1 / (l2 + S), r = 1 / (l2 + 2 S)
+  T m_[QB], s_[QB], b_[QB], r_[QB], lg1 = T(0);
 #pragma unroll
-  for (int q = 0; q < QA; ++q) {
-    m_[q] = s_[q] = r[q] = b[q] = T(0);
-    if (q < Qn) {
-      const T s = S[nn * Qn + q];
-      const T l2q = l2[q];
+  for (int q = 0; q < Qn; ++q) {
+    const T s = S[nn * Qn + q];
+    const T l2q = l2[q];
+    if constexpr (QC > 0) {
       m_[q] = mu[nn * Qn + q];
       s_[q] = s;
-      r[q] = T(1) / (l2q + T(2) * s);
-      b[q] = T(1) / (l2q + s);
-      lg1 += log1p_t(s / l2q);
+      b_[q] = T(1) / (l2q + s);
+      r_[q] = T(1) / (l2q + T(2) * s);
+    } else if constexpr (kPsi1) {
+      s_pm[q * kThreads + tid] = mu[nn * Qn + q];
+      s_pb[q * kThreads + tid] = T(1) / (l2q + s);
     }
+    lg1 += log1p_t(s / l2q);
   }
   lg1 = T(-0.5) * lg1;
 
-  // ---------------- psi1 branch (eq. (8), (10)-(12)) ----------------
-  T s1 = T(0), s1d[QA], s1v[QA];
-#pragma unroll
-  for (int q = 0; q < QA; ++q) s1d[q] = s1v[q] = T(0);
-  if constexpr (kPsi1) {
-    const T* y = Y + nn * D;
-    for (int d0 = 0; d0 < D; d0 += kDChunk) {
-      T dy[kDChunk];
-#pragma unroll
-      for (int j = 0; j < kDChunk; ++j) dy[j] = T(0);
-      for (int m = 0; m < M; ++m) {
-        T e = lg1;
-        T dq[QA];
-#pragma unroll
-        for (int q = 0; q < QA; ++q) {
-          dq[q] = T(0);
-          if (q < Qn) {
-            dq[q] = m_[q] - __ldg(Z + static_cast<size_t>(m) * Qn + q);
-            e -= T(0.5) * dq[q] * dq[q] * b[q];
-          }
-        }
-        const T blk = exp_t(e);
-        const T* g = gyv + static_cast<size_t>(m) * D;
-        if (d0 == 0) {
-          T yg = T(0);
-          for (int d = 0; d < D; ++d) yg += y[d] * __ldg(g + d);
-          const T w1 = yg * blk;
-          s1 += w1;
-#pragma unroll
-          for (int q = 0; q < QA; ++q) {
-            if (q < Qn) {
-              s1d[q] += w1 * dq[q];
-              s1v[q] += w1 * dq[q] * dq[q];
-            }
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kDChunk; ++j)
-          if (d0 + j < D) dy[j] += blk * __ldg(g + d0 + j);
-      }
-      if (live) {
-#pragma unroll
-        for (int j = 0; j < kDChunk; ++j)
-          if (d0 + j < D) dY[nn * D + d0 + j] = dy[j];
-      }
-    }
-  }
-
-  // ---------------- psi2 branch (eq. (9), (15)-(17)) ----------------
   // the pair pass's per-point sums, pair block by pair block, in double.
   // tz is the zterm part of dl (eq. (20)), sum T (z_a - z_b)^2: summed from
   // the point's own terms, not from the pair sums P, because g2 can be large
   // and cancel across pairs, and a point's rounding then stays that point's
   const int C = 1 + 3 * Qn;
   const T* src = pt + nn;
-  // kind c of the point, summed over the pair blocks in order, in double
-  auto point_sum = [&](int c) {
-    double acc = 0.0;
-    for (int pb = 0; pb < NPB; ++pb)
-      acc += static_cast<double>(src[(static_cast<size_t>(pb) * C + c) * N]);
-    return static_cast<T>(acc);
-  };
-  const T t = point_sum(0);
+  T* out = part + static_cast<size_t>(blockIdx.x) * (Qn + 1);
+  const T t = point_sum(src, NPB, C, N, 0);
+  T s1 = T(0);
+#pragma unroll
+  for (int q0 = 0; q0 < Qn; q0 += QB) {
+    // ---------------- psi1 branch (eq. (8), (10)-(12)) ----------------
+    T s1d[QB], s1v[QB];
+#pragma unroll
+    for (int qq = 0; qq < QB; ++qq) s1d[qq] = s1v[qq] = T(0);
+    if constexpr (kPsi1) {
+      const T* y = Y + nn * D;
+      // dY in the first pass, kDChunk columns a sweep over m; later passes
+      // sweep once for the moments
+      for (int d0 = 0; d0 < (q0 == 0 ? D : 1); d0 += kDChunk) {
+        T dy[kDChunk];
+#pragma unroll
+        for (int j = 0; j < kDChunk; ++j) dy[j] = T(0);
+        for (int m = 0; m < M; ++m) {
+          const T* zm = Z + static_cast<size_t>(m) * Qn;
+          T e = lg1;
+#pragma unroll
+          for (int q = 0; q < Qn; ++q) {
+            const T dq = point_term<QC>(m_, s_pm, q) - __ldg(zm + q);
+            e -= T(0.5) * dq * dq * point_term<QC>(b_, s_pb, q);
+          }
+          const T blk = exp_t(e);
+          const T* g = gyv + static_cast<size_t>(m) * D;
+          if (d0 == 0) {
+            T yg = T(0);
+            for (int d = 0; d < D; ++d) yg += y[d] * __ldg(g + d);
+            const T w1 = yg * blk;
+            if (q0 == 0) s1 += w1;
+#pragma unroll
+            for (int qq = 0; qq < QB; ++qq) {
+              const int q = q0 + qq;
+              if (q < Qn) {
+                const T dq = point_term<QC>(m_, s_pm, q) - __ldg(zm + q);
+                s1d[qq] += w1 * dq;
+                s1v[qq] += w1 * dq * dq;
+              }
+            }
+          }
+          if (q0 == 0) {
+#pragma unroll
+            for (int j = 0; j < kDChunk; ++j)
+              if (d0 + j < D) dy[j] += blk * __ldg(g + d0 + j);
+          }
+        }
+        if (live && q0 == 0) {
+#pragma unroll
+          for (int j = 0; j < kDChunk; ++j)
+            if (d0 + j < D) dY[nn * D + d0 + j] = dy[j];
+        }
+      }
+    }
 
-  // ---------------- per-point outputs and block partials ----------------
-  T dl_pt[QA];
+    // ---- psi2 branch (eq. (9), (15)-(17)): per-point outputs and dl ----
 #pragma unroll
-  for (int q = 0; q < QA; ++q) {
-    dl_pt[q] = T(0);
-    if (q < Qn) {
-      const T bq = b[q], rq = r[q], lq = ls[q];
-      const T sd = point_sum(1 + q), sv = point_sum(1 + Qn + q);
-      const T tz = point_sum(1 + 2 * Qn + q);
-      if (live) {
-        dmu[nn * Qn + q] = -bq * s1d[q] - T(2) * rq * sd;  // eq. (10) + (16)
-        dS[nn * Qn + q] = T(-0.5) * bq * s1 + T(0.5) * bq * bq * s1v[q]
-                          - rq * t + T(2) * rq * rq * sv;  // eq. (11) + (17)
+    for (int qq = 0; qq < QB; ++qq) {
+      const int q = q0 + qq;
+      if (q < Qn) {
+        T s, bq, rq;
+        if constexpr (QC > 0) {  // q == qq
+          s = s_[qq], bq = b_[qq], rq = r_[qq];
+        } else {
+          s = S[nn * Qn + q];
+          bq = T(1) / (l2[q] + s), rq = T(1) / (l2[q] + T(2) * s);
+        }
+        const T lq = ls[q];
+        const T sd = point_sum(src, NPB, C, N, 1 + q);
+        const T sv = point_sum(src, NPB, C, N, 1 + Qn + q);
+        const T tz = point_sum(src, NPB, C, N, 1 + 2 * Qn + q);
+        if (live) {
+          dmu[nn * Qn + q] = -bq * s1d[qq] - T(2) * rq * sd;  // eq. (10) + (16)
+          dS[nn * Qn + q] = T(-0.5) * bq * s1 + T(0.5) * bq * bq * s1v[qq]
+                            - rq * t + T(2) * rq * rq * sv;  // eq. (11) + (17)
+        }
+        block_sum(s_red, w * ((s * bq / lq) * s1 + lq * bq * bq * s1v[qq]
+                              + (T(2) / lq) * s * rq * t + T(2) * lq * rq * rq * sv
+                              + T(0.5) * tz / (lq * lq * lq)), out, q);  // eq. (14) + (20)
       }
-      dl_pt[q] = w * ((s_[q] * bq / lq) * s1 + lq * bq * bq * s1v[q]
-                      + (T(2) / lq) * s_[q] * rq * t + T(2) * lq * rq * rq * sv
-                      + T(0.5) * tz / (lq * lq * lq));  // eq. (14) + (20)
     }
   }
-  const T dv_pt = w * (s1 + T(2) * t);  // eq. (13) + (19), times v
-  // fixed-order tree sums over the block (k is block-uniform)
-#pragma unroll
-  for (int k = 0; k < QA + 1; ++k) {
-    if (k <= Qn) {
-      s_red[tid] = k < Qn ? dl_pt[k < QA ? k : 0] : dv_pt;
-      __syncthreads();
-      for (int h = kThreads / 2; h > 0; h >>= 1) {
-        if (tid < h) s_red[tid] += s_red[tid + h];
-        __syncthreads();
-      }
-      if (tid == 0) part[static_cast<size_t>(blockIdx.x) * (Qn + 1) + k] = s_red[0];
-      __syncthreads();
-    }
-  }
+  block_sum(s_red, w * (s1 + T(2) * t), out, Qn);  // eq. (13) + (19), times v
 }
 
 template <typename T, bool kPsi1>
@@ -569,6 +658,13 @@ PointKernel<T, kPsi1> point_kernel_for(int Q) {
   }
 }
 
+// dynamic shared memory of a point-pass block: the run-time-Q instance's
+// per-point mu and b (psi1 branch only)
+template <typename T, bool kPsi1>
+size_t point_smem_bytes(int Q) {
+  return compile_q(Q) == 0 && kPsi1 ? 2 * sizeof(T) * static_cast<size_t>(Q) * kThreads : 0;
+}
+
 // the point pass over NB = ceil(N / kThreads) blocks, reading the pair
 // pass's per-point sums pt
 template <typename T, bool kPsi1>
@@ -577,7 +673,10 @@ cudaError_t point_pass(int NB, cudaStream_t stream, const T* mu, const T* S,
                        const T* gyv, const T* pt, T* dmu, T* dS, T* dY, T* part,
                        int N, int M, int Q, int D) {
   const PointKernel<T, kPsi1> fn = point_kernel_for<T, kPsi1>(Q);
-  fn<<<NB, kThreads, 0, stream>>>(mu, S, Y, Z, l2, ls, gyv, pt, dmu, dS, dY, part, N, M,
+  const size_t smem = point_smem_bytes<T, kPsi1>(Q);
+  const cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  fn<<<NB, kThreads, smem, stream>>>(mu, S, Y, Z, l2, ls, gyv, pt, dmu, dS, dY, part, N, M,
                                   Q, D, pair_blocks(M, Q));
   return cudaGetLastError();
 }

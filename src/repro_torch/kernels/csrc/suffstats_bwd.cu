@@ -93,8 +93,10 @@
 //     shared memory holds one staged run and its warps' per-point sums.
 //   * Ragged N, M and D are masked at the bounds; nothing is padded.
 //   * float and double instances compute in the input dtype; Q = 1..4 is a
-//     compile-time constant (registers), larger Q (<= 16) runs a run-time-Q
-//     instance (shared memory).
+//     compile-time constant (registers), and any larger Q runs the run-time-Q
+//     instances (reverse.cuh), which sum the moments a chunk of q's a pass
+//     and so evaluate the exponentials once a pass, as dz1_partial_kernel
+//     does at every Q.
 #include "reverse.cuh"
 
 namespace {
@@ -108,9 +110,15 @@ constexpr int kZStage = 64;
 // dZ pass: the psi1 branch of dZ (eq. (12)), m-parallel over an N-split
 // ---------------------------------------------------------------------------
 
-// part: (P, M, Q)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// part: (P, M, Q). The sums of kMaxQ q's a pass over the split, the pass's
+// z in registers. kWide (Q > kMaxQ): a pass for each kMaxQ q's, each
+// evaluating the exponentials again (the other q's z read through L1); the
+// one-pass instance (q0 = 0) has no other q's. Both held to the resident
+// blocks ptxas gave the one-pass kernel on its own (float 3, double 2 a
+// multiprocessor): left free, it takes more registers and fewer blocks,
+// and runs slower.
+template <typename T, bool kWide>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
 dz1_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
                    const T* __restrict__ Y, const T* __restrict__ Z,
                    const T* __restrict__ l2, const T* __restrict__ gyv,
@@ -129,62 +137,76 @@ dz1_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   const int p = blockIdx.y;
   int n0, n1;
   split_range(N, P, p, &n0, &n1);
-
-  T zm[kMaxQ], acc[kMaxQ];
-#pragma unroll
-  for (int q = 0; q < kMaxQ; ++q) {
-    zm[q] = q < Q ? Z[static_cast<size_t>(mc) * Q + q] : T(0);
-    acc[q] = T(0);
-  }
   const T* g = gyv + static_cast<size_t>(mc) * D;
 
-  for (int base = n0; base < n1; base += kZStage) {
-    const int cnt = min(kZStage, n1 - base);
-    __syncthreads();  // the previous run is consumed
-    if (tid < cnt) {
-      const size_t n = static_cast<size_t>(base + tid);
-      T lg = T(0);
-      for (int q = 0; q < Q; ++q) {
-        const T s = S[n * Q + q];
-        s_mu[tid * Q + q] = mu[n * Q + q];
-        s_b[tid * Q + q] = T(1) / (l2[q] + s);
-        lg += log1p_t(s / l2[q]);
-      }
-      s_lg[tid] = T(-0.5) * lg;
-    }
-    __syncthreads();
-    for (int i = lane; i < cnt; i += kZLanes) {
-      T e = s_lg[i];
-      T d[kMaxQ];
+  for (int q0 = 0; q0 < (kWide ? Q : 1); q0 += kMaxQ) {
+    T zm[kMaxQ], acc[kMaxQ];
 #pragma unroll
-      for (int q = 0; q < kMaxQ; ++q) {
-        d[q] = T(0);
-        if (q < Q) {
-          d[q] = s_mu[i * Q + q] - zm[q];
-          e -= T(0.5) * d[q] * d[q] * s_b[i * Q + q];
+    for (int q = 0; q < kMaxQ; ++q) {
+      zm[q] = q0 + q < Q ? Z[static_cast<size_t>(mc) * Q + q0 + q] : T(0);
+      acc[q] = T(0);
+    }
+    for (int base = n0; base < n1; base += kZStage) {
+      const int cnt = min(kZStage, n1 - base);
+      __syncthreads();  // the previous run is consumed
+      if (tid < cnt) {
+        const size_t n = static_cast<size_t>(base + tid);
+        T lg = T(0);
+        for (int q = 0; q < Q; ++q) {
+          const T s = S[n * Q + q];
+          s_mu[tid * Q + q] = mu[n * Q + q];
+          s_b[tid * Q + q] = T(1) / (l2[q] + s);
+          lg += log1p_t(s / l2[q]);
         }
+        s_lg[tid] = T(-0.5) * lg;
       }
-      const T* y = Y + static_cast<size_t>(base + i) * D;
-      T yg = T(0);
-      for (int dd = 0; dd < D; ++dd) yg += y[dd] * g[dd];
-      const T w1 = yg * exp_t(e);
+      __syncthreads();
+      for (int i = lane; i < cnt; i += kZLanes) {
+        // the exponent in q order: the pass's q's from registers, the
+        // others' z through L1
+        T e = s_lg[i];
+        auto other = [&](int q) {
+          const T dq = s_mu[i * Q + q] - __ldg(Z + static_cast<size_t>(mc) * Q + q);
+          e -= T(0.5) * dq * dq * s_b[i * Q + q];
+        };
+        if constexpr (kWide) {
+          for (int q = 0; q < q0; ++q) other(q);
+        }
+        T d[kMaxQ];
 #pragma unroll
-      for (int q = 0; q < kMaxQ; ++q)
-        if (q < Q) acc[q] += w1 * s_b[i * Q + q] * d[q];
+        for (int q = 0; q < kMaxQ; ++q) {
+          d[q] = T(0);
+          if (q0 + q < Q) {
+            d[q] = s_mu[i * Q + q0 + q] - zm[q];
+            e -= T(0.5) * d[q] * d[q] * s_b[i * Q + q0 + q];
+          }
+        }
+        if constexpr (kWide) {
+          for (int q = q0 + kMaxQ; q < Q; ++q) other(q);
+        }
+        const T* y = Y + static_cast<size_t>(base + i) * D;
+        T yg = T(0);
+        for (int dd = 0; dd < D; ++dd) yg += y[dd] * g[dd];
+        const T w1 = yg * exp_t(e);
+#pragma unroll
+        for (int q = 0; q < kMaxQ; ++q)
+          if (q0 + q < Q) acc[q] += w1 * s_b[i * Q + q0 + q] * d[q];
+      }
     }
-  }
 
-  // sum the kZLanes lanes of each m in a fixed order
+    // sum the kZLanes lanes of each m in a fixed order
 #pragma unroll
-  for (int q = 0; q < kMaxQ; ++q) {
-    if (q < Q) {
-      __syncthreads();
-      s_red[lane * kZTileM + mm] = acc[q];
-      __syncthreads();
-      if (lane == 0 && m < M) {
-        T s = T(0);
-        for (int l = 0; l < kZLanes; ++l) s += s_red[l * kZTileM + mm];
-        part[(static_cast<size_t>(p) * M + m) * Q + q] = s;
+    for (int qq = 0; qq < kMaxQ; ++qq) {
+      const int q = q0 + qq;
+      if (q < Q) {
+        __syncthreads();
+        s_red[lane * kZTileM + mm] = acc[qq];
+        __syncthreads();
+        if (lane == 0 && m < M) {
+          T s = T(0);
+          for (int l = 0; l < kZLanes; ++l) s += s_red[l * kZTileM + mm];
+          part[(static_cast<size_t>(p) * M + m) * Q + q] = s;
+        }
       }
     }
   }
@@ -205,8 +227,10 @@ cudaError_t suffstats_bwd(const T* mu, const T* S, const T* Y, const T* Z,
 
   const dim3 gridZ((M + kZTileM - 1) / kZTileM, PZ);
   const size_t smemZ = sizeof(T) * (2 * kZStage * Q + kZStage + kZLanes * kZTileM);
-  dz1_partial_kernel<T><<<gridZ, kThreads, smemZ, stream>>>(mu, S, Y, Z, l2, gyv, dz_part,
-                                                            N, M, Q, D, PZ);
+  const auto dz_fn = Q > kMaxQ ? dz1_partial_kernel<T, true> : dz1_partial_kernel<T, false>;
+  err = allow_smem(dz_fn, smemZ);
+  if (err != cudaSuccess) return err;
+  dz_fn<<<gridZ, kThreads, smemZ, stream>>>(mu, S, Y, Z, l2, gyv, dz_part, N, M, Q, D, PZ);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 

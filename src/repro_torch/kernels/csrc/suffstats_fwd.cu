@@ -24,7 +24,7 @@
 //   * Only real pairs get a slot: the M (M + 1) / 2 pairs a <= b are packed
 //     row by row and each thread of a pair block owns 4 of them, zbar in
 //     registers when Q is a compile-time 1..4 (shared memory for a run-time
-//     Q <= 16). A warp skips a slot that lies wholly past the last pair, so
+//     Q; above Q = 16 one pair a thread, so that zbar fits). A warp skips a slot that lies wholly past the last pair, so
 //     a point costs 32 ceil(M (M + 1) / 64) exponentials: 5,056 for the
 //     5,050 pairs at M = 100, none wasted at M = 256.
 //   * Base-2 exponentials: log2(e) is folded into the staged per-point terms
@@ -145,6 +145,8 @@ cudaError_t suffstats_fwd(const T* mu, const T* S, const T* Y, const T* Z,
   const dim3 gridY((M + kYTileM - 1) / kYTileM, (D + kYTileD - 1) / kYTileD, PY);
   const size_t smemY = sizeof(T) * (2 * kYStage * Q + kYStage + kYStage * kYTileD +
                                     kYStage * kYTileM + kYTileM * Q + Q);
+  err = allow_smem(psiy_partial_kernel<T>, smemY);
+  if (err != cudaSuccess) return err;
   psiy_partial_kernel<T><<<gridY, kThreads, smemY, stream>>>(mu, S, Y, Z, l2, partY, N, M, Q, D, PY);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

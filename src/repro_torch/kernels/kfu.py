@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.psi1 import Z_TILE_ELEMS
+from repro_torch.kernels.psi1 import cross_launch_splits
 from repro_torch.kernels.suffstats import check_inputs, launch
 
 # incremented once per launch of the CUDA kernel, and nowhere else
@@ -44,10 +44,10 @@ def kfu_cuda(X, Z, variance, lengthscale):
                  per_point=True)
     N, Q = X.shape
     M = Z.shape[0]
-    cols = min(M, Z_TILE_ELEMS // Q)
+    cols, P = cross_launch_splits("kfu_fwd", X, M)
     l2 = (lengthscale * lengthscale).contiguous()
     v = variance.reshape(1).contiguous()
     out = X.new_empty(N, M)
-    launch("kfu_fwd", (X, Z, l2, v, out), (N, M, Q, cols))
+    launch("kfu_fwd", (X, Z, l2, v, out), (N, M, Q, cols, P))
     LAUNCHES += 1
     return out

@@ -16,8 +16,12 @@ The backward is picked by `bwd_backend`, as in the reference:
   * ``"jnp"``    — the plain reverse pass on any device.
 
 Each op saves only its inputs. As in the reference, every input is cast to
-the first input's dtype (mu's, or X's for `kfu`) at the op's boundary and each cotangent is returned in its own
-input's dtype. There is no `block=` and no autotuner yet.
+the first input's dtype (mu's, or X's for `kfu`) at the op's boundary and
+each cotangent is returned in its own input's dtype. The kernels take
+float32 and float64; half-precision inputs (bfloat16, float16) on the card
+go through them in float32 and come back in their own dtypes, the
+reference's compiled policy (its kernels compute in float32). There is no
+`block=` and no autotuner yet.
 """
 from __future__ import annotations
 
@@ -42,6 +46,21 @@ def _check_bwd_backend(bwd_backend: str) -> None:
             f"bwd_backend must be one of {BWD_BACKENDS}, got {bwd_backend!r}")
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _on_card(kernel, tensors, dtype):
+    """`kernel` on the card's tensors in the dtype it computes in (float32
+    for half inputs), each output cast back to `dtype`."""
+    ct = torch.float32 if dtype in _HALF else dtype
+    out = kernel(*(t.to(ct).contiguous() for t in tensors))
+    if ct == dtype:
+        return out
+    if isinstance(out, tuple):
+        return tuple(o.to(dtype) for o in out)
+    return out.to(dtype)
+
+
 def _forward(ctx, inputs, bwd_backend, plain, kernel):
     """Save the inputs cast to mu's dtype, then run the plain version on
     CPU tensors and the kernel on CUDA tensors."""
@@ -51,7 +70,7 @@ def _forward(ctx, inputs, bwd_backend, plain, kernel):
     ctx.save_for_backward(*x)
     if x[0].device.type == "cpu":
         return plain(*x)
-    return kernel(*(t.contiguous() for t in x))
+    return _on_card(kernel, x, x[0].dtype)
 
 
 def _backward(ctx, cotangents, plain, kernel):
@@ -67,7 +86,7 @@ def _backward(ctx, cotangents, plain, kernel):
             "bwd_backend='pallas' needs CUDA tensors: the reverse kernel "
             "has no CPU mode; use 'auto' or 'jnp' on the CPU")
     else:
-        grads = kernel(*(t.contiguous() for t in (*x, *g)))
+        grads = _on_card(kernel, (*x, *g), x[0].dtype)
     return (*(gr.to(dt) if need else None for gr, dt, need in
               zip(grads, ctx.dtypes, ctx.needs_input_grad)), None)
 

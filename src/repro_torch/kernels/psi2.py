@@ -45,7 +45,8 @@ def psi2_cuda(mu, S, Z, variance, lengthscale):
     input dtype. Raises on inputs the kernel does not take and if the launch
     fails."""
     global LAUNCHES
-    check_inputs(mu, S, None, Z, variance, lengthscale, what="psi2_cuda")
+    check_inputs(mu, S, None, Z, variance, lengthscale, what="psi2_cuda",
+                 lib="psi2_fwd")
     N, Q = mu.shape
     M = Z.shape[0]
     P = psi2_splits(N, M, *card_geometry("psi2_fwd", mu))

@@ -53,8 +53,10 @@ PSI2_BWD_LAUNCHES = 0
 # (`geometry`), so the host and the kernel cannot disagree.
 PAIR_THREADS = 256
 Y_TILE_M, Y_TILE_D, Y_STAGE = 32, 8, 64  # psiY block tile and staging run
-MAX_Q = 16  # shared-memory staging is sized for Q <= 16
-# N-splits of the psiY, dZ and psi1-reverse blocks are chosen so that about
+# dynamic shared memory a block may use on sm_90 (227 KB): the only bound on
+# Q, through each kernel's staging (`kernel_smem`)
+SMEM_LIMIT = 232_448
+# N-splits of the psiY and dZ blocks are chosen so that about
 # this many blocks run at once (4 per SM of a 132-SM H100). A function of
 # the shapes only, so the summation order and hence the bits of the result
 # never change from run to run.
@@ -63,9 +65,14 @@ TARGET_BLOCKS = 4 * 132
 # block, and the dZ pass's inducing-point tile and staging run
 BWD_THREADS = 256
 Z_TILE_M, Z_STAGE = 32, 64
-# geometry of csrc/psi1_bwd.cu: inducing points (lanes) per block and
-# datapoints per staged run
-PSI1_BWD_LANES, PSI1_BWD_RUN = 32, 64
+# geometry of csrc/psi1_bwd.cu: stages of its ring, the longest run, the
+# fast path's dZ partials (column slots x Q) a lane holds in registers and
+# the column slots it evaluates without a branch
+PSI1_BWD_STAGES, PSI1_BWD_MAX_RUN = 4, 64
+PSI1_BWD_REG_COLUMNS, PSI1_BWD_COLUMN_CHUNK = 32, 4
+# shared memory that lets two psi1-reverse blocks share a multiprocessor
+# (228 KB a multiprocessor, 1 KB of it reserved a block)
+TWO_BLOCKS_SMEM = 228 * 1024 // 2 - 1024
 
 
 # ---------------------------------------------------------------------------
@@ -429,11 +436,22 @@ def geometry(lib_name: str, dtype: torch.dtype, Q: int, device_index: int) -> Ge
     return Geometry(*out)
 
 
+@functools.lru_cache(maxsize=None)
+def multiprocessors(device_index: int) -> int:
+    """The multiprocessor count of the card `device_index`."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def card_of(t: torch.Tensor) -> tuple[int, int]:
+    """(device index, multiprocessor count) of t's card."""
+    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return dev, multiprocessors(dev)
+
+
 def card_geometry(lib_name: str, t: torch.Tensor) -> tuple[Geometry, int]:
     """(geometry, multiprocessor count) for a launch of `lib_name` on t's
     card, t being mu or X (N, Q)."""
-    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dev, sms = card_of(t)
     return geometry(lib_name, t.dtype, t.shape[1], dev), sms
 
 
@@ -451,10 +469,42 @@ def launch(lib_name: str, tensors, ints) -> None:
                            f"(cudaError {rc})")
 
 
+def _psi2_fwd_smem(Q: int, itemsize: int) -> int:
+    """csrc/common.cuh: psi2_smem_bytes at Q (zbar in shared memory for a
+    run-time Q, kFwdSlots slots a thread up to Q = 16, then one)."""
+    zbar = (4 if Q <= 16 else 1) * Q * PAIR_THREADS if Q > 4 else 0
+    return 32 * 8 + itemsize * (2 * 128 * Q + 128 + zbar)
+
+
+def _pair_smem(Q: int, itemsize: int) -> int:
+    """csrc/reverse.cuh: pair_smem_bytes at Q."""
+    if Q <= 4:
+        return 32 * 8 + itemsize * (2 * 32 * Q + 32 + 8 * 32 * (1 + 3 * Q))
+    # run-time Q: zbar of every q, one pass's 1 + 3 * 8 kinds, runs of 16
+    return 32 * 8 + itemsize * (Q * PAIR_THREADS + 2 * 16 * Q + 16 + 8 * 16 * 25)
+
+
+def kernel_smem(lib: str, Q: int, itemsize: int) -> int:
+    """The most dynamic shared memory a block of library `lib` (B1-B4) needs
+    at Q, from the sources' layouts: the ψ2 pair blocks, B1's psiY blocks,
+    B2's point pass (at a run-time Q it holds the point's mu and b) and
+    B2's dZ pass."""
+    psiy = itemsize * (2 * Y_STAGE * Q + Y_STAGE + Y_STAGE * Y_TILE_D + Y_STAGE * Y_TILE_M
+                       + Y_TILE_M * Q + Q)
+    dz1 = itemsize * (2 * Z_STAGE * Q + Z_STAGE + BWD_THREADS)
+    point = 2 * itemsize * Q * BWD_THREADS if Q > 4 else 0
+    return {"suffstats_fwd": max(_psi2_fwd_smem(Q, itemsize), psiy),
+            "psi2_fwd": _psi2_fwd_smem(Q, itemsize),
+            "suffstats_bwd": max(_pair_smem(Q, itemsize), point, dz1),
+            "psi2_bwd": _pair_smem(Q, itemsize)}[lib]
+
+
 def check_inputs(mu, S, Y, Z, variance, lengthscale, *, what: str,
-                 per_point: bool = False, **cotangents) -> None:
+                 per_point: bool = False, lib: str | None = None,
+                 **cotangents) -> None:
     """Raise ValueError on anything the kernel `what` does not take: CUDA
-    tensors of one float dtype, matching shapes, 1 <= Q <= MAX_Q, row
+    tensors of one float dtype, matching shapes, Q >= 1 (and, for the
+    library `lib`'s ψ2 kernels, no more than their shared memory holds), row
     indices within 32 bits, contiguous arrays. `Y` is None for the
     single-statistic kernels and `S` for K_fu (mu is then X); `per_point`
     kernels (and every reverse kernel) need N >= 1. Cotangents are checked
@@ -493,10 +543,14 @@ def check_inputs(mu, S, Y, Z, variance, lengthscale, *, what: str,
             raise ValueError(f"shape mismatch: {name} is {tuple(t.shape)}, "
                              f"must be {want[name]}")
     need_points = per_point or bool(cotangents)
-    if not 1 <= Q <= MAX_Q or M < 1 or D < 1 or (need_points and N < 1):
-        raise ValueError(f"{what} takes 1 <= Q <= {MAX_Q}, M >= 1, D >= 1"
+    if Q < 1 or M < 1 or D < 1 or (need_points and N < 1):
+        raise ValueError(f"{what} takes Q >= 1, M >= 1, D >= 1"
                          f"{' and N >= 1' if need_points else ''}; got N={N}, "
                          f"Q={Q}, M={M}, D={D}")
+    if lib is not None and kernel_smem(lib, Q, mu.element_size()) > SMEM_LIMIT:
+        raise ValueError(f"{what}: at Q={Q} a block of its kernels stages "
+                         f"{kernel_smem(lib, Q, mu.element_size())} bytes of shared memory "
+                         f"in {dt}, more than the {SMEM_LIMIT} a block may have")
     if max(N * max(Q, D), M * M * (Q + 1)) >= 2**31:
         raise ValueError(f"{what} indexes rows with 32-bit ints")
     for name, t in named.items():
@@ -509,7 +563,8 @@ def suffstats_cuda(mu, S, Y, Z, variance, lengthscale):
     stream, in the input dtype. Raises on inputs the kernel does not take
     and if the launch fails."""
     global LAUNCHES
-    check_inputs(mu, S, Y, Z, variance, lengthscale, what="suffstats_cuda")
+    check_inputs(mu, S, Y, Z, variance, lengthscale, what="suffstats_cuda",
+                 lib="suffstats_fwd")
     N, Q = mu.shape
     M, D = Z.shape[0], Y.shape[1]
     P2, PY = splits(N, M, D, *card_geometry("suffstats_fwd", mu))
@@ -567,7 +622,7 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY):
     pair pass's packed partials and its per-(pair block, point) sums."""
     global BWD_LAUNCHES
     check_inputs(mu, S, Y, Z, variance, lengthscale, what="suffstats_bwd_cuda",
-                 g2=g2, gY=gY)
+                 lib="suffstats_bwd", g2=g2, gY=gY)
     N, Q = mu.shape
     M, D = Z.shape[0], Y.shape[1]
     geo, sms = card_geometry("suffstats_bwd", mu)
@@ -602,7 +657,7 @@ def psi2_bwd_cuda(mu, S, Z, variance, lengthscale, g2):
     does not take and if the launch fails."""
     global PSI2_BWD_LAUNCHES
     check_inputs(mu, S, None, Z, variance, lengthscale, what="psi2_bwd_cuda",
-                 g2=g2)
+                 lib="psi2_bwd", g2=g2)
     N, Q = mu.shape
     M = Z.shape[0]
     geo, sms = card_geometry("psi2_bwd", mu)
@@ -623,12 +678,156 @@ def psi2_bwd_cuda(mu, S, Z, variance, lengthscale, g2):
     return dmu, dS, _psi2_dZ(Z, l2, G2p, pair_sum), dv, point_sum[:Q]
 
 
-def psi1_bwd_splits(N: int, M: int) -> int:
-    """N-splits of the psi1 reverse kernel's tile pass: about TARGET_BLOCKS
-    blocks of (32 inducing points, split), no split shorter than one staged
-    run. A function of the shapes only."""
-    tiles = -(-M // PSI1_BWD_LANES)
-    return max(1, min(-(-TARGET_BLOCKS // tiles), -(-N // PSI1_BWD_RUN)))
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def span_room(count: int, itemsize: int) -> int:
+    """Shared-memory elements a staged span of `count` elements can take
+    (csrc/common.cuh: span_room): count plus the largest 16-byte shift, in
+    whole 16-byte chunks."""
+    v = 16 // itemsize
+    return -(-(count + v - 1) // v) * v
+
+
+class Psi1BwdPlan(NamedTuple):
+    """csrc/psi1_bwd.cu's launch plan: a function of (M, Q, dtype) only."""
+    run: int  # R: datapoints a staged run
+    cols: int  # MT: inducing points a column tile (M: one tile)
+    lanes: int  # G: threads a datapoint's row sums take
+    smem: int  # dynamic shared-memory bytes a block
+    fast: bool  # the fast path: each lane's dZ columns in registers
+
+
+def psi1_bwd_smem(itemsize: int, M: int, Q: int, R: int, MT: int, G: int) -> int:
+    """Bytes of csrc/psi1_bwd.cu: psi1_bwd_layout (mirrored): the ring of
+    stages (g, mu, S), exp2_neg's table, the groups' dl / dv sums, the
+    per-point sums across column tiles, the run's per-point terms and row
+    offsets."""
+    tiled = MT < M
+    g_room = R * span_room(MT, itemsize) if tiled else span_room(R * M, itemsize)
+    stage = (g_room + 2 * span_room(R * Q, itemsize)) * itemsize
+    return (PSI1_BWD_STAGES * stage + 32 * 8
+            + _round16((PAIR_THREADS // G) * (Q + 1) * 8)
+            + (_round16(R * (1 + 2 * Q) * 8) if tiled else 0)
+            + 4 * _round16(R * Q * itemsize) + _round16(R * itemsize) + _round16(R * 4))
+
+
+def psi1_bwd_fast_smem(itemsize: int, M: int, Q: int, R: int, G: int) -> int:
+    """Bytes of csrc/psi1_bwd.cu: psi1_bwd_fast_layout (mirrored): the ring,
+    exp2_neg's table, Z transposed, the groups' dl / dv sums."""
+    stage = (span_room(R * M, itemsize) + 2 * span_room(R * Q, itemsize)) * itemsize
+    return (PSI1_BWD_STAGES * stage + 32 * 8 + _round16(M * Q * itemsize)
+            + _round16((PAIR_THREADS // G) * (Q + 1) * 8))
+
+
+def psi1_bwd_fast_columns(Q: int) -> int:
+    """Column slots a lane of the fast path holds at Q (csrc/psi1_bwd.cu:
+    fast_columns): PSI1_BWD_REG_COLUMNS / Q in whole chunks."""
+    return PSI1_BWD_REG_COLUMNS // Q // PSI1_BWD_COLUMN_CHUNK * PSI1_BWD_COLUMN_CHUNK
+
+
+def psi1_bwd_fast_lanes(M: int, Q: int, R: int) -> int:
+    """G of the fast path at run length R (one point a group: G = 256 / R),
+    or 0 where it does not apply: Q > 4 (no compile-time instance), R not a
+    power of two in [8, 64], or more columns a lane than its registers hold."""
+    if Q > 4 or R not in (8, 16, 32, 64):
+        return 0
+    G = PAIR_THREADS // R
+    return G if -(-M // G) <= psi1_bwd_fast_columns(Q) else 0
+
+
+def _banks_distinct(M: int, G: int, itemsize: int) -> bool:
+    """Do a warp's first reads of staged g (lanes l < G of rows i < 32 / G
+    at element i M + l) hit distinct banks? A bank sweep serves 32 floats
+    or 16 doubles."""
+    words = 32 if itemsize == 4 else 16
+    addrs = [i * M + lane for i in range(32 // G) for lane in range(G)]
+    return all(len({a % words for a in addrs[h:h + words]}) == len(addrs[h:h + words])
+               for h in range(0, 32, words))
+
+
+def psi1_bwd_lanes(M: int, R: int, itemsize: int) -> int:
+    """G: threads a datapoint takes, so that the block's 256 threads cover
+    min(64, R) points at once (a power of two), widened until a warp's reads
+    of g hit distinct banks (32, one row a warp, always does)."""
+    groups = min(64, 1 << (R.bit_length() - 1))
+    G = PAIR_THREADS // groups
+    while G < 32 and not _banks_distinct(M, G, itemsize):
+        G *= 2
+    return G
+
+
+def psi1_bwd_plan_at(M: int, Q: int, itemsize: int, R: int, MT: int = 0) -> Psi1BwdPlan:
+    """The plan at run length R (and column tile MT; 0: one tile): the fast
+    path where `psi1_bwd_fast_lanes` allows it, else the general one."""
+    MT = MT or M
+    G = psi1_bwd_fast_lanes(M, Q, R) if MT == M else 0
+    if G:
+        return Psi1BwdPlan(R, M, G, psi1_bwd_fast_smem(itemsize, M, Q, R, G), True)
+    G = 32 if MT < M else psi1_bwd_lanes(M, R, itemsize)
+    return Psi1BwdPlan(R, MT, G, psi1_bwd_smem(itemsize, M, Q, R, MT, G), False)
+
+
+@functools.lru_cache(maxsize=None)
+def psi1_bwd_plan(M: int, Q: int, itemsize: int) -> Psi1BwdPlan:
+    """The launch plan of csrc/psi1_bwd.cu at (M, Q, dtype): the longest run
+    of the fast path (64, 32, 16 or 8 points) whose ring fits a block; else
+    the general path's longest run (at most 64 points, at least 32) that
+    fits two blocks a multiprocessor, else one (at least 8); else runs of 8
+    points over column tiles of the widest multiple of 32 that fits. Raises
+    ValueError where nothing fits (Q too large for shared memory). The
+    fast path's runs were timed at the paper's shape
+    (scripts/psi2_kernels.py --b6-runs): 64 points beat 32, 16 and 8 in
+    both dtypes, even where 64 doubles leave one block a multiprocessor."""
+    for R in (64, 32, 16, 8):
+        if psi1_bwd_fast_lanes(M, Q, R):
+            p = psi1_bwd_plan_at(M, Q, itemsize, R)
+            if p.smem <= SMEM_LIMIT:
+                return p
+    limits = ((TWO_BLOCKS_SMEM, 32), (SMEM_LIMIT, 8))
+    for limit, least in limits:
+        for R in range(PSI1_BWD_MAX_RUN, least - 1, -1):
+            p = psi1_bwd_plan_at(M, Q, itemsize, R)
+            if not p.fast and p.smem <= limit:
+                return p
+    for MT in range((M - 1) // 32 * 32, 0, -32):
+        p = psi1_bwd_plan_at(M, Q, itemsize, 8, MT)
+        if p.smem <= SMEM_LIMIT:
+            return p
+    raise ValueError(f"psi1 reverse kernel: Q={Q} needs more than the {SMEM_LIMIT} bytes "
+                     f"of shared memory a block may have, even at 8 points and 32 "
+                     f"inducing points a stage")
+
+
+def psi1_bwd_splits(N: int, R: int, resident: int) -> int:
+    """N-splits (blocks) of csrc/psi1_bwd.cu: one wave of the card's
+    `resident` blocks, no split shorter than one run (and so none empty).
+    A function of the shapes and the card only, so the summation order, and
+    the bits of the result, never change from run to run."""
+    return max(1, min(resident, -(-N // R)))
+
+
+@functools.lru_cache(maxsize=None)
+def psi1_bwd_occupancy(dtype: torch.dtype, M: int, Q: int, plan: Psi1BwdPlan,
+                       device_index: int) -> int:
+    """Resident psi1-reverse blocks a multiprocessor for this plan, from
+    the library's occupancy query; checks that the library lays out the
+    shared memory the plan counted."""
+    lib = _build.library("psi1_bwd")
+    fn = lib.psi1_bwd_occupancy
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device_index):
+        rc = fn(int(dtype == torch.float64), M, Q, plan.run, plan.cols, plan.lanes,
+                int(plan.fast), out)
+    if rc != 0:
+        raise RuntimeError(f"psi1_bwd occupancy query failed (cudaError {rc})")
+    if out[1] != plan.smem:
+        raise RuntimeError(f"psi1_bwd lays out {out[1]} bytes of shared memory, the "
+                           f"plan counted {plan.smem}")
+    return out[0]
 
 
 def psi1_bwd_cuda(mu, S, Z, variance, lengthscale, g):
@@ -636,22 +835,25 @@ def psi1_bwd_cuda(mu, S, Z, variance, lengthscale, g):
     CUDA reverse kernel `csrc/psi1_bwd.cu` (replaces `psi1_bwd_pallas`;
     at S = 0 it is the reverse pass of K_fu) given g (N, M), on mu's device
     and stream, in the input dtype. Raises on inputs the kernel does not
-    take and if the launch fails."""
+    take and if the launch fails. Scratch: the blocks' dZ and dl / dv
+    totals in double, (P, M, Q) and (P, Q + 1)."""
     global PSI1_BWD_LAUNCHES
     check_inputs(mu, S, None, Z, variance, lengthscale, what="psi1_bwd_cuda", g=g)
     N, Q = mu.shape
     M = Z.shape[0]
-    P = psi1_bwd_splits(N, M)
-    NB = -(-N // BWD_THREADS)
+    plan = psi1_bwd_plan(M, Q, mu.element_size())
+    dev, sms = card_of(mu)
+    P = psi1_bwd_splits(N, plan.run, psi1_bwd_occupancy(mu.dtype, M, Q, plan, dev) * sms)
     ls = lengthscale.contiguous()
     l2 = (ls * ls).contiguous()
     v = variance.reshape(1).contiguous()
-    pt = mu.new_empty(-(-M // PSI1_BWD_LANES), N, 1 + 2 * Q)
-    dz_part, dZ = mu.new_empty(P, M, Q), mu.new_empty(M, Q)
+    Zt = Z.T.contiguous()
     dmu, dS = mu.new_empty(N, Q), mu.new_empty(N, Q)
-    point_part, point_sum = mu.new_empty(NB, Q + 1), mu.new_empty(Q + 1)
-    launch("psi1_bwd", (mu, S, Z, l2, ls, v, g, pt, dz_part, dZ, dmu, dS,
-                        point_part, point_sum), (N, M, Q, P, NB))
+    dz_acc = mu.new_empty(P, M, Q, dtype=torch.float64)
+    dl_part = mu.new_empty(P, Q + 1, dtype=torch.float64)
+    dZ, point_sum = mu.new_empty(M, Q), mu.new_empty(Q + 1)
+    launch("psi1_bwd", (mu, S, Zt, l2, ls, v, g, dmu, dS, dz_acc, dl_part, dZ, point_sum),
+           (N, M, Q, P, plan.run, plan.cols, plan.lanes, int(plan.fast)))
     PSI1_BWD_LAUNCHES += 1
     dv = (point_sum[Q] / variance).reshape(variance.shape)
     return dmu, dS, dZ, dv, point_sum[:Q]

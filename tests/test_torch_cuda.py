@@ -390,3 +390,165 @@ def test_psi2_ops_route_mixed_dtypes_through_the_kernels(card, stat, bwd_backend
     for g, leaf, w in zip(grads, leaves, want):
         assert g.dtype == leaf.dtype
         assert _rel(g, w) <= TOL[leaf.dtype]
+
+
+# ---------------------------------------------------------------------------
+# B5, B6 and B7 across their staged spans: the paper's shape, the second
+# kernel shape, odd N and M (runs that start on and off 16-byte
+# boundaries), a row of M = 1000 doubles that outgrows a stage of the
+# reverse kernel (column tiles), one point; B6's fast path (compile-time
+# Q, a lane's dZ columns in registers) and its general path (M = 257 at
+# Q = 4, M = 1000 in double). The plain versions run in float64 on the
+# card.
+# ---------------------------------------------------------------------------
+
+SPAN_CASES = [(1_000_003, 100, 1, True), (100_003, 256, 4, True), (1_001, 130, 3, True),
+              (4_099, 257, 2, False), (513, 33, 1, True), (5_003, 1_000, 1, True),
+              (1, 7, 1, False), (37, 5, 3, True), (3_001, 257, 4, True)]
+CROSS_KERNELS = {  # name: (kernel, plain, arguments of (mu, S, Z, v, l, g), counter)
+    "psi1_fwd": (p1.psi1_cuda, p1.psi1_plain, (0, 1, 2, 3, 4), (p1, "LAUNCHES")),
+    "psi1_bwd": (ss.psi1_bwd_cuda, ss.psi1_vjp_plain, (0, 1, 2, 3, 4, 5),
+                 (ss, "PSI1_BWD_LAUNCHES")),
+    "kfu_fwd": (kf.kfu_cuda, kf.kfu_plain, (0, 2, 3, 4), (kf, "LAUNCHES")),
+    "kfu_bwd": (ss.kfu_bwd_cuda, ss.kfu_vjp_plain, (0, 2, 3, 4, 5), (ss, "PSI1_BWD_LAUNCHES")),
+}
+
+
+def _span_args(case, device, seed=3):
+    """(mu, S, Z, variance, lengthscale, g) on `device`; above Q = 16 the
+    lengthscales grow with sqrt(Q) so that the statistics stay well above
+    underflow."""
+    N, M, Q, pos_S = case
+    rng = np.random.default_rng(seed)
+    spread = np.sqrt(Q) if Q > 16 else 1.0
+    arrs = (rng.uniform(-3.0, 3.0, (N, Q)),
+            rng.uniform(0.001, 0.05, (N, Q)) if pos_S else np.zeros((N, Q)),
+            rng.uniform(-3.0, 3.0, (M, Q)), np.float64(1.3), spread * rng.uniform(0.3, 1.2, Q),
+            rng.normal(size=(N, M)))
+    return [torch.as_tensor(a, device=device) for a in arrs]
+
+
+def _held(kernel, plain, args, counter, dtype):
+    want = _as_tuple(plain(*args))
+    dev = [a.to(dtype) for a in args]
+    before = getattr(*counter)
+    got, again = _as_tuple(kernel(*dev)), _as_tuple(kernel(*dev))
+    torch.cuda.synchronize()
+    assert getattr(*counter) == before + 2
+    assert len(got) == len(want)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, a)  # two launches bitwise equal
+        assert _rel(g, w.cpu()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32), ids=str)
+@pytest.mark.parametrize("case", SPAN_CASES, ids=str)
+@pytest.mark.parametrize("name", sorted(CROSS_KERNELS))
+def test_cross_and_psi1_reverse_kernels_match_plain_across_spans(card, name, case, dtype):
+    kernel, plain, idx, counter = CROSS_KERNELS[name]
+    arrs = _span_args(case, card)
+    _held(kernel, plain, [arrs[i] for i in idx], counter, dtype)
+
+
+# ---------------------------------------------------------------------------
+# every kernel above Q = 16: the run-time-Q instances of B1-B4 with their
+# wide pair and point passes, B6's chunked moments, B5/B7's run-time Q
+# ---------------------------------------------------------------------------
+
+LARGE_Q_KERNELS = {  # name: (kernel, plain, arguments of (mu, S, Y, Z, v, l, g2, gY, g), counter)
+    **{k: v for k, v in PSI2_KERNELS.items()},
+    "psi1_fwd": (p1.psi1_cuda, p1.psi1_plain, (0, 1, 3, 4, 5), (p1, "LAUNCHES")),
+    "psi1_bwd": (ss.psi1_bwd_cuda, ss.psi1_vjp_plain, (0, 1, 3, 4, 5, 8),
+                 (ss, "PSI1_BWD_LAUNCHES")),
+    "kfu_fwd": (kf.kfu_cuda, kf.kfu_plain, (0, 3, 4, 5), (kf, "LAUNCHES")),
+}
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32), ids=str)
+@pytest.mark.parametrize("Q", (17, 32))
+@pytest.mark.parametrize("name", sorted(LARGE_Q_KERNELS))
+def test_every_kernel_takes_q_above_16(card, name, Q, dtype):
+    kernel, plain, idx, counter = LARGE_Q_KERNELS[name]
+    N, M, D = 2_003, 40, 3
+    mu, S, Z, v, l, g = _span_args((N, M, Q, True), card)
+    g2, gY = (a.to(card) for a in _cotangents(M, D))
+    Y = torch.as_tensor(np.random.default_rng(4).normal(size=(N, D)), device=card)
+    arrs = (mu, S, Y, Z, v, l, g2, gY, g)
+    _held(kernel, plain, [arrs[i] for i in idx], counter, dtype)
+
+
+# ---------------------------------------------------------------------------
+# half precision through the ops, and the statistics under a caller's TF32
+# ---------------------------------------------------------------------------
+
+HALF_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3}  # a rounding of each to the half type
+HALF_OPS = {  # op: (op, plain forward, plain reverse, arguments of (mu, S, Y, Z, v, l), cotangents)
+    "suffstats": (ops.suffstats, ss.suffstats_fused_plain, ss.suffstats_vjp_plain,
+                  (0, 1, 2, 3, 4, 5), ("g2", "gY")),
+    "psi1": (ops.psi1, p1.psi1_plain, ss.psi1_vjp_plain, (0, 1, 3, 4, 5), ("g",)),
+    "psi2": (ops.psi2, p2.psi2_plain, ss.psi2_vjp_plain, (0, 1, 3, 4, 5), ("g2",)),
+    "kfu": (ops.kfu, kf.kfu_plain, ss.kfu_vjp_plain, (0, 3, 4, 5), ("g",)),
+}
+
+
+@pytest.mark.parametrize("half", sorted(HALF_TOL, key=str), ids=str)
+@pytest.mark.parametrize("name", sorted(HALF_OPS))
+def test_ops_run_half_precision_through_the_kernels_in_float32(card, name, half):
+    """bfloat16 / float16 inputs: forward and reverse through the kernels in
+    float32, outputs and cotangents in the half type, each within one
+    rounding of the float32 plain version on the same (half-rounded)
+    inputs cast back."""
+    op, plain, plain_vjp, idx, cot_names = HALF_OPS[name]
+    N, M, Q, D = 1_003, 33, 2, 3
+    arrs = _inputs(N, M, Q, D, True)
+    rng = np.random.default_rng(5)
+    cots = {"g": rng.normal(size=(N, M)), "g2": rng.normal(size=(M, M)),
+            "gY": rng.normal(size=(M, D))}
+    args = [arrs[i].to(card, half) for i in idx]
+    gs = [torch.as_tensor(cots[c], device=card).to(half) for c in cot_names]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = _as_tuple(op(*leaves))
+    grads = torch.autograd.grad(sum((o * g).sum() for o, g in zip(out, gs)), leaves)
+    torch.cuda.synchronize()
+    want = _as_tuple(plain(*(a.float() for a in args)))
+    want_g = plain_vjp(*(a.float() for a in args), *(g.float() for g in gs))
+    for o, w in zip(out, want):
+        assert o.dtype == half and _rel(o, w.to(half).double().cpu()) <= HALF_TOL[half]
+    for g, w in zip(grads, want_g):
+        assert g.dtype == half and _rel(g, w.to(half).double().cpu()) <= HALF_TOL[half]
+
+
+@pytest.mark.parametrize("backend", ("pallas", "fused"))
+def test_statistics_ignore_a_callers_tf32(card, backend):
+    """Under torch.set_float32_matmul_precision("high") the float32
+    statistics and their gradients are bitwise those under "highest", and
+    the caller's "high" is still set afterwards."""
+    from repro_torch.core import psi_stats as tps
+
+    rng = np.random.default_rng(6)
+    N, M, D = 20_000, 64, 3
+    kern = {"log_variance": torch.tensor(0.1, device=card),
+            "log_lengthscale": torch.tensor([-0.5], device=card)}
+    X, S, Y, Z = (torch.as_tensor(a, device=card, dtype=torch.float32) for a in
+                  (rng.normal(size=(N, 1)), rng.uniform(0.01, 0.1, (N, 1)),
+                   rng.normal(size=(N, D)), rng.normal(size=(M, 1))))
+
+    def run():
+        leaves = [a.clone().requires_grad_(True) for a in (X, S, Z)]
+        exact = tps.exact_stats_rbf(kern, leaves[0], Y, leaves[2], backend=backend)
+        expected = tps.expected_stats_rbf(kern, leaves[0], leaves[1], Y, leaves[2],
+                                          backend=backend)
+        loss = sum(s.psi2.sum() + s.psiY.sum() for s in (exact, expected))
+        return [*exact[1:3], *expected[1:3], *torch.autograd.grad(loss, leaves)]
+
+    want = run()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = run()
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -36,6 +36,7 @@ from repro_torch.serve import GPServer
 
 RTOL = 1e-10
 
+
 # (N, M, Q, S > 0): M = 130 spans two of the reference's 128-wide tiles with
 # a ragged second one; N ragged against its 32- and 256-row tiles and the
 # plain passes' chunks (and N = 1); Q in {1, 3}; S = 0 (psi1 is then K_fu)
@@ -210,12 +211,17 @@ def test_ops_validate_bwd_backend_and_refuse_the_kernel_on_cpu(stat):
 
 @pytest.mark.parametrize("shape", ((1_000_000, 100), (100_003, 256), (1, 5)))
 def test_psi1_bwd_splits_depend_on_shape_only(shape):
+    """The reverse kernel's plan and N-splits are functions of the shapes and
+    the card's resident blocks only: one wave, no split shorter than a run."""
     N, M = shape
-    P = tss.psi1_bwd_splits(N, M)
-    assert P == tss.psi1_bwd_splits(N, M) and P >= 1
-    assert P == 1 or N // P >= tss.PSI1_BWD_RUN
-    tiles = -(-M // tss.PSI1_BWD_LANES)
-    assert tiles * P < tss.TARGET_BLOCKS + tiles  # about TARGET_BLOCKS blocks
+    resident = 2 * 132
+    for itemsize in (4, 8):
+        plan = tss.psi1_bwd_plan(M, 1, itemsize)
+        assert plan == tss.psi1_bwd_plan(M, 1, itemsize)
+        P = tss.psi1_bwd_splits(N, plan.run, resident)
+        assert P == tss.psi1_bwd_splits(N, plan.run, resident)
+        assert 1 <= P <= resident  # one wave
+        assert P == 1 or N // P >= plan.run
 
 
 # ---------------------------------------------------------------------------
