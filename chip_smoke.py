@@ -85,7 +85,30 @@ Phases (any failure exits non-zero and prints no result):
    both dtypes, two launches bitwise equal; then bfloat16 and float16
    inputs through ops.suffstats, psi1, psi2 and kfu, forward and reverse,
    through the kernels in float32, against the float32 plain versions.
-11. Times, with the card's name and power limit: each kernel and its plain
+11. The kernel family in float64 at the paper's shape: a `BayesianGPLVM`
+   with `Product(RBF, RBF)` through backend="fused" and then "pallas", 5
+   Adam steps each from the grid's parameters split over the two parts;
+   each step launches B1 and B2 (B5, B3, B6 and B4) once and no other
+   kernel; on the grid the loss is held within 1e-10 and every gradient
+   leaf within 1e-8 of a single RBF at the equivalent hyperparameters
+   (printed after the fit). Then `Sum(RBF, Linear)` in a `BayesianGPLVM`
+   and `Matern32` in a `SparseGPRegression` through "jnp", 3 steps each
+   from their own init (finite losses, the last below the first, no
+   kernel launched); every fitted model served at B = 1 and 256 and
+   refitted.
+12. The temporal backend: `regression(Matern32(1), backend="temporal")`
+   fitted on the temporal quickstart's series at N = 1e6 (float64
+   timestamps), 10 Adam steps on the parallel path (finite, the last
+   below the first), its peak device memory held under 256 float64
+   (d, d) matrices a point; at N = 4,096 the parallel filter and smoother
+   against the sequential ones (1e-10) and the lml against
+   `exact_gp_log_marginal` (1e-8 relative); the fitted model registered
+   with a `GPServer` and forecast at B = 1 and 64; a state over the first
+   4,096 points streamed 10 chunks of 2,500 points through `update`,
+   held to a one-shot sequential filter over the concatenated series
+   (1e-10). None of B1-B7 is launched. Prints the step time, the update
+   time a point and the forecast p50.
+13. Times, with the card's name and power limit: each kernel and its plain
    version at the paper's shape (median of CUDA-event timings; a kernel's
    as one launch an event pair, its `ms`, and over 10 launches back to
    back, divided by 10, its `rate_ms`), the
@@ -1526,7 +1549,308 @@ def phase_half() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: times and the bounds
+# phase 11: the kernel family (Product, Sum, Matern) at the paper's shape
+# ---------------------------------------------------------------------------
+
+FAMILY_STEPS = 5  # Adam steps of each Product-of-RBFs fit
+FAMILY_JNP_STEPS = 3  # of the Sum GP-LVM and the Matern SGPR
+PRODUCT_KERNELS = {"fused": ("suffstats_fwd", "suffstats_bwd"),
+                   "pallas": ("psi1_fwd", "psi2_fwd", "psi1_bwd", "psi2_bwd")}
+FAMILY_GRAD_TOL = 1e-8  # each gradient leaf vs the single RBF's
+
+
+def product_params(p_rbf: dict) -> dict:
+    """Product(RBF, RBF) parameters equal to the single RBF's `p_rbf`: part
+    0 takes 0.6 of the log-variance and 1.5 lengthscales, part 1 the rest
+    (1 / l1^2 = 1 / l^2 - 1 / l0^2)."""
+    log_var, log_ls = p_rbf["kern"]["log_variance"], p_rbf["kern"]["log_lengthscale"]
+    log_l0 = log_ls + np.log(1.5)
+    log_l1 = -0.5 * torch.log(torch.exp(-2.0 * log_ls) - torch.exp(-2.0 * log_l0))
+    return {**p_rbf, "kern": {
+        "k0": {"log_variance": 0.6 * log_var, "log_lengthscale": log_l0},
+        "k1": {"log_variance": 0.4 * log_var, "log_lengthscale": log_l1}}}
+
+
+def hold_product_to_rbf(product, rbf, params: dict, Y, what: str, *,
+                        hold: bool = True) -> None:
+    """The Product-of-RBFs GP-LVM's loss and gradients at `params` against
+    the single RBF's at the equivalent hyperparameters: the loss within
+    TOL, every shared leaf's gradient and each part's kernel gradient (the
+    RBF's through the chain rule of the delegation) within FAMILY_GRAD_TOL
+    where `hold`. The statistics are the RBF's bit for bit; Kuu is not (a
+    product of two exponentials against one), so away from the grid the
+    epilogue's conditioning shows in the Z gradient, and there the errors
+    are printed only."""
+    kern_rbf, eq = product.kernel._equivalent_rbf(params["kern"])
+    p_rbf = {**params, "kern": {k: v.detach() for k, v in eq.items()}}
+    loss_p, g_p = inference.value_and_grad(product._loss, params, (Y,))
+    loss_r, g_r = inference.value_and_grad(rbf._loss, p_rbf, (Y,))
+    errs = {"loss": abs(float(loss_p) - float(loss_r)) / abs(float(loss_r))}
+    for k in ("Z", "log_beta", "q_mu", "q_logS"):
+        errs[k] = rel_err(g_p[k], g_r[k])
+    parts = params["kern"]
+    inv_l2 = sum(torch.exp(-2.0 * parts[s]["log_lengthscale"]) for s in parts)
+    for s in parts:
+        errs[f"{s}/log_variance"] = rel_err(g_p["kern"][s]["log_variance"],
+                                            g_r["kern"]["log_variance"])
+        share = torch.exp(-2.0 * parts[s]["log_lengthscale"]) / inv_l2
+        errs[f"{s}/log_lengthscale"] = rel_err(g_p["kern"][s]["log_lengthscale"],
+                                               g_r["kern"]["log_lengthscale"] * share)
+    log(f"[family] {what}: vs a single RBF at the equivalent hyperparameters "
+        f"({'held' if hold else 'not held'}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not hold:
+        return
+    bad = {k: v for k, v in errs.items()
+           if v > (TOL[torch.float64] if k == "loss" else FAMILY_GRAD_TOL)}
+    check(not bad, f"{what}: Product of RBFs vs the single RBF {bad}")
+
+
+def phase_kernel_family(data: dict) -> dict:
+    """The rest of the kernel family as a user drives it, in float64 at the
+    paper's shape: a BayesianGPLVM with a Product of two RBFs through
+    backend="fused" and then "pallas" (FAMILY_STEPS Adam steps each, from
+    the grid parameters split over the parts; every counter set to 0 just
+    before each fit and read just after: one launch of each of the
+    backend's kernels a step), held to the single RBF on the grid (and
+    printed after the fit); a BayesianGPLVM with Sum(RBF, Linear) and a SparseGPRegression
+    with Matern32 through "jnp" (FAMILY_JNP_STEPS steps from their own
+    init, no kernel launched); then every fitted model served at B = 1 and
+    256 and refitted. Returns the Product fits' launches by kernel."""
+    f64 = torch.float64
+    Y = _as(data["Y_lvm"], f64)
+    p_grid = tree_map(lambda t: t.double(), grid_params(Y))
+    product_kernel = get("product")(get("rbf")(1), get("rbf")(1))
+    launches = {name: 0 for name in COUNTERS}
+    fitted = {}
+    for backend, kernels in PRODUCT_KERNELS.items():
+        rbf = BayesianGPLVM(M=PAPER[1], backend=backend, device="cuda")
+        rbf.kernel = get("rbf")(1)
+        product = BayesianGPLVM(kernel=product_kernel, M=PAPER[1], backend=backend,
+                                device="cuda")
+        p0 = product_params(p_grid)
+        hold_product_to_rbf(product, rbf, p0, Y, f"{backend} on the grid")
+        zero_counts()
+        t0 = time.perf_counter()
+        product.fit(Y, steps=FAMILY_STEPS, log_every=1, params=p0)
+        torch.cuda.synchronize()
+        fit = counts()
+        log(f"[family] product of RBFs, {backend}: {FAMILY_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s; launches {fit}")
+        check(all(fit[k] == (FAMILY_STEPS if k in kernels else 0) for k in fit),
+              f"product {backend}: expected one launch of each of {kernels} a step "
+              f"and no other kernel, got {fit}")
+        for k, v in fit.items():
+            launches[k] += v
+        h = product.history
+        log(f"[family] product {backend}: loss {h[0]:.9f} -> {h[-1]:.9f} over {len(h)} steps")
+        check(len(h) == FAMILY_STEPS and all(np.isfinite(h)) and h[-1] < h[0],
+              f"product {backend}: losses {h}")
+        hold_product_to_rbf(product, rbf, product.params, Y, f"{backend} after the fit",
+                            hold=False)
+        # the step against the single RBF's at the equivalent hyperparameters,
+        # in turns: product, RBF, RBF, product
+        eq = product.kernel._equivalent_rbf(product.params["kern"])[1]
+        rbf.params = {**product.params, "kern": {k: v.detach() for k, v in eq.items()}}
+        rbf._data = product._data
+        ms = [step_ms(m) for m in (product, rbf, rbf, product)]
+        log(f"[time] training step float64 gplvm {backend} (N={PAPER[0]}, M={PAPER[1]}): "
+            f"Product(RBF, RBF) {ms[0]:.3f}, {ms[3]:.3f} ms; the single RBF {ms[1]:.3f}, "
+            f"{ms[2]:.3f} ms (median of {TIMED_STEPS - 1} after the first, in turns)")
+        fitted[f"gplvm_product_{backend}"] = product
+    zero_counts()
+    lvm = BayesianGPLVM(kernel=get("sum")(get("rbf")(1), get("linear")(1)),
+                        M=PAPER[1], device="cuda")
+    p_sum = tree_map(lambda t: t.double(), lvm.init_params(Y))
+    t0 = time.perf_counter()
+    lvm.fit(Y, steps=FAMILY_JNP_STEPS, log_every=1, params=p_sum)
+    torch.cuda.synchronize()
+    log(f"[family] gplvm Sum(RBF, Linear) jnp: {FAMILY_JNP_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s; loss {lvm.history[0]:.6f} -> {lvm.history[-1]:.6f}")
+    X, Ys = _as(data["X"], f64), _as(data["Y"], f64)
+    sgpr = SparseGPRegression(kernel=get("matern32")(1), M=PAPER[1], device="cuda")
+    p_m = tree_map(lambda t: t.double(), sgpr.init_params(X, Ys))
+    t0 = time.perf_counter()
+    sgpr.fit(X, Ys, steps=FAMILY_JNP_STEPS, log_every=1, params=p_m)
+    torch.cuda.synchronize()
+    log(f"[family] sgpr Matern32 jnp: {FAMILY_JNP_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s; loss {sgpr.history[0]:.6f} -> {sgpr.history[-1]:.6f}")
+    for key, model in (("gplvm Sum", lvm), ("sgpr Matern32", sgpr)):
+        h = model.history
+        check(len(h) == FAMILY_JNP_STEPS and all(np.isfinite(h)) and h[-1] < h[0],
+              f"{key}: losses {h}")
+    check(all(v == 0 for v in counts().values()),
+          f"the Sum and Matern fits launched a kernel: {counts()}")
+    fitted.update({"gplvm_sum": lvm, "sgpr_matern32": sgpr})
+    serve_fitted(fitted, f64)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the temporal backend (Matern-3/2, float64 timestamps)
+# ---------------------------------------------------------------------------
+
+TEMPORAL_N = 1_000_000
+TEMPORAL_STEPS = 10
+TEMPORAL_CHECK_N = 4096  # parallel vs sequential, and vs the dense lml
+STREAM_CHUNKS, STREAM_CHUNK = 10, 2500
+TEMPORAL_TOL = 1e-10  # parallel vs sequential filter and smoother; streamed vs one-shot
+TEMPORAL_LML_TOL = 1e-8  # vs exact_gp_log_marginal, relative
+# peak device memory of the fit, bounded by O(N d^2): this many float64
+# (d, d) matrices a point (the autograd graph saves ~41 at d = 2)
+TEMPORAL_MEM_MATRICES = 256
+FORECAST_BATCHES = (1, 64)
+
+
+def temporal_series(n: int, seed: int = SEED):
+    """examples/torch_temporal_quickstart.py's series: gaps uniform in
+    [0.5e-3, 1.5e-3], f = sin(2 pi 0.8 t), Y = f + N(0, 0.1^2), float64."""
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.uniform(0.5e-3, 1.5e-3, n))[:, None]
+    f = np.sin(2.0 * np.pi * 0.8 * t[:, 0])
+    return t, (f + 0.1 * rng.standard_normal(n))[:, None]
+
+
+def _abs_err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def temporal_checks(model, t, Y) -> None:
+    """At the fitted parameters on the first TEMPORAL_CHECK_N points: the
+    parallel filter and smoother against the sequential ones, and the lml
+    against the dense O(N^3) marginal."""
+    from repro_torch.core.svgp import exact_gp_log_marginal
+    from repro_torch.temporal import rts_smoother
+
+    n = TEMPORAL_CHECK_N
+    params = tree_map(lambda p: p.detach().double(), model.params)
+    tc, Yc = t[:n, 0], Y[:n]
+    with torch.no_grad():
+        out = {}
+        for parallel in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, A, Q, res = model._filter(params, tc, Yc, parallel=parallel)
+            sm = rts_smoother(A, Q, res.means, res.covs, parallel=parallel)
+            torch.cuda.synchronize()
+            out[parallel] = (res, sm, (time.perf_counter() - t0) * 1e3)
+        (par, spar, ms_p), (seq, sseq, ms_s) = out[True], out[False]
+        errs = {"means": _abs_err(par.means, seq.means), "covs": _abs_err(par.covs, seq.covs),
+                "smoothed means": _abs_err(spar[0], sseq[0]),
+                "smoothed covs": _abs_err(spar[1], sseq[1]),
+                "lml": abs(float(par.lml) - float(seq.lml)) / abs(float(seq.lml))}
+        Kff = model.kernel.K(params["kern"], tc[:, None])
+        dense = exact_gp_log_marginal(Kff, Yc, torch.exp(params["log_beta"]), jitter=0.0)
+        lml_err = abs(float(par.lml) - float(dense)) / abs(float(dense))
+    log(f"[temporal] N={n}: parallel vs sequential " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()) + f"; lml {float(par.lml):.9f} vs dense "
+        f"{float(dense):.9f}, rel err {lml_err:.2e}")
+    log(f"[time] temporal filter + smoother at N={n}: parallel {ms_p:.1f} ms, sequential "
+        f"{ms_s:.1f} ms ({ms_s / n * 1e3:.1f} us a point)")
+    check(all(v <= TEMPORAL_TOL for v in errs.values()),
+          f"parallel vs sequential filter/smoother: {errs}")
+    check(lml_err <= TEMPORAL_LML_TOL, f"lml vs the dense marginal {lml_err:.3e}")
+
+
+def phase_temporal() -> dict:
+    """The temporal backend as a user drives it: regression(backend=
+    "temporal") with Matern-3/2 fitted on the temporal quickstart's series
+    at N = 1e6 (TEMPORAL_STEPS Adam steps on the parallel path, float32
+    hyperparameters, float64 timestamps; peak memory held to an O(N d^2)
+    bound), the checks at TEMPORAL_CHECK_N, then serving: the fitted
+    model's state registered with a GPServer and forecast at B = 1 and 64,
+    and a state over the first TEMPORAL_CHECK_N points (sequential export)
+    streamed the next STREAM_CHUNKS x STREAM_CHUNK points through
+    `update`, held to a one-shot sequential filter over the concatenated
+    series. No kernel of B1-B7 is launched. Returns the times."""
+    from repro_torch.gp import regression
+    from repro_torch.temporal import TemporalGPRegression, forecast
+
+    n_all = TEMPORAL_N + STREAM_CHUNKS * STREAM_CHUNK
+    t_np, Y_np = temporal_series(n_all)
+    t, Y = (torch.as_tensor(a, device="cuda") for a in (t_np, Y_np))
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = regression(get("matern32")(1), backend="temporal", device="cuda")
+    t0 = time.perf_counter()
+    model.fit(t[:TEMPORAL_N], Y[:TEMPORAL_N], steps=TEMPORAL_STEPS, lr=5e-2, log_every=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    d = 2
+    bound = TEMPORAL_MEM_MATRICES * TEMPORAL_N * d * d * 8
+    h = model.history
+    log(f"[temporal] fit N={TEMPORAL_N}: {TEMPORAL_STEPS} steps in {fit_s:.1f} s; loss "
+        f"{h[0]:.6f} -> {h[-1]:.6f}; peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak / TEMPORAL_N:.0f} bytes a point) vs the bound {TEMPORAL_MEM_MATRICES} "
+        f"float64 (d, d) matrices a point = {bound / 2**30:.3f} GiB")
+    check(len(h) == TEMPORAL_STEPS and all(np.isfinite(h)) and h[-1] < h[0],
+          f"temporal fit: losses {h}")
+    check(peak <= bound, f"temporal fit peak memory {peak} > {bound}")
+    times = {"fit_s": fit_s, "peak_bytes": peak, "step_ms": step_ms(model)}
+    profile_step(model, f"temporal Matern32 step at N={TEMPORAL_N}", top=10)
+    # the scan's first level: N/2 batched (d, d) solves and products
+    rng = np.random.default_rng(SEED + 3)
+    A2, B2 = (torch.as_tensor(rng.normal(size=(TEMPORAL_N // 2, d, d)) + 3.0 * np.eye(d),
+                              device="cuda") for _ in range(2))
+    solve_ms = cuda_ms(lambda: torch.linalg.solve(A2, B2), reps=5)
+    matmul_ms = cuda_ms(lambda: A2 @ B2, reps=5)
+    log(f"[time] temporal scan level ({TEMPORAL_N // 2} float64 ({d}, {d}) matrices): "
+        f"torch.linalg.solve {solve_ms:.3f} ms, a batched product {matmul_ms:.3f} ms "
+        f"(bytes bound of the product {3 * A2.numel() * 8 / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+    times.update(solve_ms=solve_ms, matmul_ms=matmul_ms)
+    temporal_checks(model, t, Y)
+    params = tree_map(lambda p: p.detach(), model.params)
+    with GPServer(device="cuda") as srv:
+        srv.register("temporal", model)
+        state = srv.state("temporal")
+        Xf = float(state.t_last) + torch.linspace(1e-3, 0.2, 64, device="cuda",
+                                                  dtype=torch.float64)[:, None]
+        want = forecast(model.kernel, state, Xf)
+        for B in FORECAST_BATCHES:
+            mean, var = srv.predict("temporal", Xf[:B])
+            check(mean.shape == (B, 1) and var.shape == (B,), f"forecast B={B} shape")
+            check(bool(torch.isfinite(mean).all() and (var > 0).all()),
+                  f"forecast B={B}: not finite or not positive")
+            check(_abs_err(mean, want[0][:B]) <= 1e-14, f"forecast B={B} vs forecast()")
+            times[f"p50_{B}"] = predict_p50_ms(srv, "temporal", Xf, B)
+        n0 = TEMPORAL_CHECK_N
+        first = TemporalGPRegression(model.kernel, parallel=False, device="cuda")
+        first.fit(t[:n0], Y[:n0], steps=0, params=params)
+        srv.register("stream", first)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(STREAM_CHUNKS):
+            lo = TEMPORAL_N + i * STREAM_CHUNK
+            srv.update("stream", t[lo:lo + STREAM_CHUNK], Y[lo:lo + STREAM_CHUNK])
+        torch.cuda.synchronize()
+        streamed = STREAM_CHUNKS * STREAM_CHUNK
+        times["update_us"] = (time.perf_counter() - t0) / streamed * 1e6
+        state = srv.state("stream")
+    t_cat = torch.cat([t[:n0], t[TEMPORAL_N:]])
+    Y_cat = torch.cat([Y[:n0], Y[TEMPORAL_N:]])
+    with torch.no_grad():
+        one_shot = first._filter(params, t_cat[:, 0], Y_cat, parallel=False)[3]
+    errs = (_abs_err(state.m, one_shot.means[-1]), _abs_err(state.P, one_shot.covs[-1]))
+    log(f"[temporal] streamed {streamed} points in {STREAM_CHUNKS} updates after "
+        f"{n0}: vs a one-shot sequential filter over the {n0 + streamed} points m "
+        f"{errs[0]:.2e}, P {errs[1]:.2e}; n {int(state.n)}")
+    check(max(errs) <= TEMPORAL_TOL and int(state.n) == n0 + streamed,
+          f"streamed state vs one-shot: {errs}, n {int(state.n)}")
+    check(all(v == 0 for v in counts().values()),
+          f"the temporal path launched a kernel: {counts()}")
+    log(f"[time] temporal step (N={TEMPORAL_N}, Matern32, parallel): "
+        f"{times['step_ms']:.3f} ms (median of {TIMED_STEPS - 1} after the first); "
+        f"update {times['update_us']:.1f} us a point (sequential filter, "
+        f"{STREAM_CHUNKS} chunks of {STREAM_CHUNK}); forecast p50 B=1 "
+        f"{times['p50_1']:.3f} ms, B=64 {times['p50_64']:.3f} ms")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phase 13: times and the bounds
 # ---------------------------------------------------------------------------
 
 def _bound(nbytes: int, flops: int, exps: int, dtype) -> tuple:
@@ -1889,6 +2213,8 @@ def main() -> int:
         phase("float32 repeatability", phase_repeatability, data)
         phase("kernels at Q = 20", phase_large_q)
         phase("half precision through the ops", phase_half)
+        family = phase("kernel family", phase_kernel_family, data)
+        phase("temporal", phase_temporal)
         times = phase("times", phase_times, trained, pallas, sgpr, data)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1898,15 +2224,19 @@ def main() -> int:
         name = str(dtype)[6:]
         p50 = served[dtype]["p50"]
         log(f"[time] predict p50 {name}: B=1 {p50[1]:.3f} ms, B=256 {p50[256]:.3f} ms")
+        # the Product-of-RBFs fits (phase 11) run in float64
+        product = family if dtype == torch.float64 else dict.fromkeys(family, 0)
         kernels.append({"name": f"suffstats_fwd_{name}", **ROUTE,
-                        "launches": served[dtype]["launches"],
+                        "launches": served[dtype]["launches"] + product["suffstats_fwd"],
                         "max_abs_err": errs[dtype], **times[dtype, "fwd"]})
         kernels.append({"name": f"suffstats_bwd_{name}", **ROUTE_BWD,
-                        "launches": trained[dtype]["launches"]["bwd"],
+                        "launches": trained[dtype]["launches"]["bwd"]
+                        + product["suffstats_bwd"],
                         "max_abs_err": bwd_errs[dtype], **times[dtype, "bwd"]})
         # B3-B6 from the GP-LVM's pallas path, B7 from the SGPR's
         launches = {**pallas[dtype]["launches"],
                     "kfu_fwd": sgpr[dtype]["launches"]["kfu_fwd"]}
+        launches = {k: v + product[k] for k, v in launches.items()}
         for kernel, route in SINGLE_ROUTES.items():
             kernels.append({"name": f"{kernel}_{name}", **route,
                             "launches": launches[kernel],

@@ -7,11 +7,12 @@ run on the CUDA device unless the caller passes ``device="cpu"``. Every op
 whose JAX counterpart is a Pallas TPU kernel launches a hand-written CUDA
 kernel on a CUDA tensor and runs its plain PyTorch version on a CPU tensor.
 
-Ported so far (the serving and training slices): `kernels.ref`,
-`kernels.suffstats` (fused psi2 + psiY forward and its reverse pass: plain
-versions + CUDA kernels), `kernels.ops` (the differentiable op),
-`core.psi_stats`, `core.svgp`, `core.gplvm`, `core.inference`, `optim`
-(the reference's Adam), `gp.kernels` (RBF), `gp.stats`, `gp.models`
-(`SparseGPRegression`, `BayesianGPLVM`), `serve` (state, online
-update/downdate/refit, `GPServer`) and `convert`.
+Ported so far: `kernels` (the plain oracles, the fused and the
+single-statistic ops with their plain versions and CUDA kernels),
+`core.psi_stats`, `core.svgp`, `core.gplvm`, `core.inference`,
+`core.distributed`, `optim` (the reference's Adam), `gp.kernels` (the
+whole family), `gp.stats`, `gp.models` (`SparseGPRegression`,
+`BayesianGPLVM`, `regression`), `temporal` (the state-space backend),
+`serve` (posterior and temporal states, online update/downdate/refit,
+`GPServer`), `data.synthetic` and `convert`.
 """

@@ -256,3 +256,14 @@ def expected_stats_rbf(kern_params, mu, S, Y, Z, *, backend: str = "jnp",
         psiY = stat_matmul(psi1.T, Y)
     return SuffStats(psi0=mu.shape[0] * variance, psi2=psi2, psiY=psiY,
                      yy=(Y * Y).sum(), n=_count(mu))
+
+
+def expected_stats_linear(kern_params, mu, S, Y, Z) -> SuffStats:
+    """Expected statistics of the linear kernel (ARD variances) in closed
+    form: plain PyTorch on any device."""
+    ard = torch.exp(kern_params["log_ard"])
+    psi1 = ref.psi1_linear(mu, S, Z, ard)
+    return SuffStats(psi0=ref.psi0_linear(mu, S, ard),
+                     psi2=ref.psi2_linear(mu, S, Z, ard),
+                     psiY=stat_matmul(psi1.T, Y), yy=(Y * Y).sum(),
+                     n=_count(mu))

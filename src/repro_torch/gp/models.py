@@ -24,8 +24,14 @@ tensors given to `fit` and `predict` are moved there in their own dtype.
 With `mesh=`, `fit`, `posterior`, `predict` and `export_state` take the
 full arrays, as without, and every rank returns the same answers.
 
-Not ported yet, each raising `NotImplementedError`: `chunk="auto"` (the
-autotuner) and `regression(backend="temporal")`.
+Any kernel of `gp.kernels` goes in; each fails as the reference's does: a
+Matern in `BayesianGPLVM` (no closed-form psi statistics), a non-RBF
+kernel with backend="fused"/"pallas" (an all-RBF `Product` delegates to
+the equivalent RBF and runs them). `regression(backend="temporal")` is
+`repro_torch.temporal.TemporalGPRegression`.
+
+Not ported yet, raising `NotImplementedError`: `chunk="auto"` (the
+autotuner).
 """
 from __future__ import annotations
 
@@ -332,16 +338,23 @@ def regression(kernel: Optional[Kernel] = None, *, backend: str = "collapsed",
     """GP regression facade picked by compute backend.
 
     backend="collapsed" (default) -> `SparseGPRegression`; kwargs = (M,
-    mesh, backend, chunk, bwd_backend, device), with the statistics-path knob
-    spelled `stats_backend=` here to avoid clashing. backend="temporal"
-    (the state-space GP) comes with a later slice of the port.
+    mesh, backend, chunk, bwd_backend, device), with the statistics-path
+    knob spelled `stats_backend=` here to avoid clashing.
+
+    backend="temporal" -> `repro_torch.temporal.TemporalGPRegression`:
+    exact state-space inference for 1-D stationary kernels (the Matern
+    family and Sum/Product of it — `kernel.supports_sde()`), O(N) with a
+    parallel associative-scan path; kwargs = (parallel, device).
+
+    Fails fast with the chosen backend's capability error (e.g. an RBF
+    kernel under backend="temporal").
     """
     if backend == "collapsed":
         if "stats_backend" in kwargs:
             kwargs["backend"] = kwargs.pop("stats_backend")
         return SparseGPRegression(kernel, **kwargs)
     if backend == "temporal":
-        raise NotImplementedError(
-            "backend='temporal' (repro.temporal's state-space GP) comes with "
-            "a later slice of the port")
+        from repro_torch.temporal import TemporalGPRegression
+
+        return TemporalGPRegression(kernel, **kwargs)
     raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")

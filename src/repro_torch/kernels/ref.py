@@ -3,13 +3,15 @@
 Counterpart of `repro.kernels.ref`, formula for formula:
 
   - ``kfu``  : cross covariance K_fu (N x M)        [sparse GP, deterministic X]
+  - ``phi_exact`` : Phi = K_fu^T K_fu (M x M)
   - ``psi0`` : sum_n <k(x_n, x_n)>_{q(x_n)}          (scalar)
   - ``psi1`` : Psi1[n,m] = <k(x_n, z_m)>_{q(x_n)}    (N x M)
   - ``psi2`` : Psi2 = sum_n <k_fu(x_n)^T k_fu(x_n)>  (M x M)
 
 Closed forms for the RBF-ARD kernel under diagonal Gaussian
-q(x_n) = N(mu_n, diag(S_n)) follow Titsias & Lawrence (2010). The fused
-statistics kernel (`repro_torch.kernels.suffstats`) is tested against these.
+q(x_n) = N(mu_n, diag(S_n)) follow Titsias & Lawrence (2010); the linear
+kernel's keep the statistics layer kernel-generic. The fused statistics
+kernel (`repro_torch.kernels.suffstats`) is tested against these.
 """
 from __future__ import annotations
 
@@ -24,6 +26,13 @@ def kfu_rbf(X: torch.Tensor, Z: torch.Tensor, variance: torch.Tensor,
     d2 = ((Xs**2).sum(-1)[:, None] + (Zs**2).sum(-1)[None, :]
           - 2.0 * Xs @ Zs.T)
     return variance * torch.exp(-0.5 * d2.clamp_min(0.0))
+
+
+def phi_exact_rbf(X: torch.Tensor, Z: torch.Tensor, variance: torch.Tensor,
+                  lengthscale: torch.Tensor) -> torch.Tensor:
+    """Phi = K_fu^T K_fu, the paper's per-datapoint outer-product sum."""
+    Kfu = kfu_rbf(X, Z, variance, lengthscale)
+    return Kfu.T @ Kfu
 
 
 def psi0_rbf(mu: torch.Tensor, S: torch.Tensor, variance: torch.Tensor,
@@ -70,3 +79,24 @@ def psi2_rbf(mu: torch.Tensor, S: torch.Tensor, Z: torch.Tensor,
     """Psi2 = sum_n psi2^{(n)} (M x M): the textbook (N, M, M, Q) broadcast,
     kept as an implementation independent of the streaming ones."""
     return psi2_n_rbf(mu, S, Z, variance, lengthscale).sum(0)
+
+
+# -- Linear kernel (keeps the statistics layer kernel-generic) --------------
+
+def psi0_linear(mu: torch.Tensor, S: torch.Tensor,
+                ard: torch.Tensor) -> torch.Tensor:
+    return (ard[None, :] * (mu**2 + S)).sum()
+
+
+def psi1_linear(mu: torch.Tensor, S: torch.Tensor, Z: torch.Tensor,
+                ard: torch.Tensor) -> torch.Tensor:
+    del S
+    return (mu * ard) @ Z.T
+
+
+def psi2_linear(mu: torch.Tensor, S: torch.Tensor, Z: torch.Tensor,
+                ard: torch.Tensor) -> torch.Tensor:
+    Za = Z * ard  # (M, Q)
+    # sum_n (mu_n mu_n^T + diag(S_n)) contracted with Za on both sides
+    moment = mu.T @ mu + torch.diag(S.sum(0))  # (Q, Q)
+    return Za @ moment @ Za.T

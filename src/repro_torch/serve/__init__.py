@@ -13,13 +13,19 @@ statistics updates, batched low-latency serving (counterpart of
 Layering: `state` (the cached-posterior tuple + predict epilogue), `online`
 (update / downdate on the SuffStats monoid), `server` (named registry,
 buckets, micro-batching queue, admission control).
+
+Temporal models serve through the same tier: register a fitted
+`TemporalGPRegression` (its `TemporalState` is the O(d^2) analogue of
+`PosteriorState`); `predict` forecasts marginals at new timestamps and
+`update` filters new observations forward.
 """
 from repro_torch.serve.online import batch_stats, downdate, refit, refold, update
 from repro_torch.serve.server import GPServer, QueueFullError, ServerClosedError
 from repro_torch.serve.state import PosteriorState, build_state, predict
+from repro_torch.temporal.model import TemporalState
 
 __all__ = [
-    "PosteriorState", "build_state", "predict",
+    "PosteriorState", "TemporalState", "build_state", "predict",
     "update", "downdate", "refit", "refold", "batch_stats",
     "GPServer", "QueueFullError", "ServerClosedError",
 ]

@@ -15,6 +15,10 @@ backend="fused" on the card, the CUDA statistics kernel.
 floating cancellation can leave the downdated Psi2 indefinite: it refolds
 behind a condition-number guard with escalating jitter before giving up.
 `refit` re-optimizes log_beta by Adam against the cached statistics.
+
+A `repro_torch.temporal.TemporalState` goes through `update` to the
+Kalman path (`temporal.update_state`: the sequential filter forward from
+the stored terminal state); `downdate` and `refit` refuse it.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.core.psi_stats import SuffStats
 from repro_torch.gp.kernels import Kernel
 from repro_torch.gp.stats import Batch, ExactBatch, suff_stats
 from repro_torch.serve.state import PosteriorState, build_state
+from repro_torch.temporal.model import TemporalState, update_state
 
 # downdate guard: refold with jitter * 10^k, k = 0..ESCALATIONS, then raise
 ESCALATIONS = 4
@@ -58,7 +63,13 @@ def update(kernel: Kernel, state: PosteriorState, X_new: torch.Tensor,
            jitter: float = svgp.DEFAULT_JITTER) -> PosteriorState:
     """Absorb new observations: O(B M^2) statistics + O(M^3) refold. Equal
     (to roundoff) to rebuilding the statistics from scratch on the
-    concatenated data at the same hyperparameters."""
+    concatenated data at the same hyperparameters.
+
+    A `TemporalState` filters forward from its terminal (m, P) instead:
+    X_new must be sorted timestamps after the state's forecast origin, and
+    the statistics knobs (backend/chunk/bwd_backend/jitter) are ignored."""
+    if isinstance(state, TemporalState):
+        return update_state(kernel, state, X_new, Y_new)
     batch = ExactBatch(X_new, _as_2d(Y_new), state.Z)
     new = batch_stats(kernel, state, batch, backend=backend, chunk=chunk,
                       bwd_backend=bwd_backend)
@@ -103,6 +114,12 @@ def downdate(kernel: Kernel, state: PosteriorState, X_old: torch.Tensor,
              jitter: float = svgp.DEFAULT_JITTER) -> PosteriorState:
     """Remove previously absorbed observations by subtracting their exact
     statistics, then refold behind the condition guard."""
+    if isinstance(state, TemporalState):
+        raise TypeError(
+            "downdate is a statistics-monoid operation; a TemporalState is "
+            "a filtered terminal state with no per-chunk inverse (the "
+            "Kalman recursion only runs forward) — re-fit "
+            "TemporalGPRegression on the surviving data instead")
     batch = ExactBatch(X_old, _as_2d(Y_old), state.Z)
     old = batch_stats(kernel, state, batch, backend=backend, chunk=chunk)
     return refold(kernel, state, SuffStats.subtract(state.stats, old),
@@ -120,6 +137,11 @@ def refit(kernel: Kernel, state: PosteriorState, *, steps: int = 50,
     `steps` Adam steps on the bound, warm-started at the served value, and
     refolds. Returns (new_state, loss_history); the history leads with the
     loss at the served value."""
+    if isinstance(state, TemporalState):
+        raise TypeError(
+            "refit re-optimizes log_beta against cached SuffStats; a "
+            "TemporalState caches no statistics (its likelihood needs the "
+            "whole timeline) — re-fit TemporalGPRegression instead")
     with torch.no_grad():
         Kuu = kernel.K(state.kern, state.Z)
     D = state.D

@@ -20,6 +20,10 @@ Counterpart of `repro.serve.server`, on one device (the CUDA device unless
 
 * **Refit.** `refit()` re-optimizes a model's noise precision against its
   cached statistics and swaps the refolded state in the same way.
+* **Temporal models.** A `TemporalGPRegression` (or a `TemporalState`)
+  registers like any model: `predict` forecasts marginals at new
+  timestamps (diag=False raises per request), `update` filters new
+  observations forward; `downdate` and `refit` raise.
 
 Not ported yet: persistence (`store=`, `save_all`, `load`) and the byte
 budget (`budget_bytes=`) — each raises `NotImplementedError` naming the
@@ -39,6 +43,7 @@ from repro_torch import device as _device
 from repro_torch.gp.kernels import Kernel
 from repro_torch.serve import online
 from repro_torch.serve.state import PosteriorState, _predict_closure
+from repro_torch.temporal.model import TemporalState, forecast_closure
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
@@ -53,18 +58,36 @@ class QueueFullError(RuntimeError):
     the calling thread — the request never entered the queue."""
 
 
+def _no_full(state, Xt):
+    raise ValueError(
+        "diag=False (full predictive covariance) is not available for a "
+        "temporal model: the served forecast state carries per-timestamp "
+        "marginals only; use TemporalGPRegression.predict on the fitted model")
+
+
 class _Entry:
     """A registered model: kernel, state (swapped atomically under `lock`)
-    and its predict closures keyed by diag."""
+    and its predict closures keyed by diag: a posterior state's give the
+    marginal or the full covariance, a temporal state's forecast
+    marginals only."""
 
     __slots__ = ("kernel", "state", "lock", "fns")
 
-    def __init__(self, kernel: Kernel, state: PosteriorState):
+    def __init__(self, kernel: Kernel, state):
         self.kernel = kernel
         self.state = state
         self.lock = threading.Lock()
-        self.fns = {True: _predict_closure(kernel, True),
-                    False: _predict_closure(kernel, False)}
+        if isinstance(state, TemporalState):
+            self.fns = {True: forecast_closure(kernel), False: _no_full}
+        else:
+            self.fns = {True: _predict_closure(kernel, True),
+                        False: _predict_closure(kernel, False)}
+
+
+def _dtype_device(state) -> tuple:
+    """The dtype requests are cast to, and the device the state lives on."""
+    t = state.t_last if isinstance(state, TemporalState) else state.Z
+    return t.dtype, t.device
 
 
 class _Request:
@@ -128,21 +151,24 @@ class GPServer:
     # ------------------------------------------------------------------ #
 
     def register(self, name: str, model=None, *, kernel: Kernel | None = None,
-                 state: PosteriorState | None = None) -> None:
+                 state=None) -> None:
         """Register a fitted model under `name`: either a facade exposing
-        `export_state()` (`SparseGPRegression`, `BayesianGPLVM`) or an
-        explicit (kernel, state) pair. The state's tensors must live on the
-        server's device."""
+        `export_state()` (`SparseGPRegression`, `BayesianGPLVM`,
+        `TemporalGPRegression`) or an explicit (kernel, state) pair, the
+        state a `PosteriorState` or a `TemporalState`. The state's tensors
+        must live on the server's device."""
         if model is not None:
             if kernel is not None or state is not None:
                 raise ValueError("pass either a fitted model or kernel=+state=, not both")
             kernel, state = model.kernel, model.export_state()
         if kernel is None or state is None:
             raise ValueError("register needs a fitted model or both kernel= and state=")
-        if not isinstance(state, PosteriorState):
-            raise TypeError(f"state must be a PosteriorState, got {type(state).__name__}")
-        if state.Z.device != self.device:
-            raise ValueError(f"state lives on {state.Z.device}, the server "
+        if not isinstance(state, (PosteriorState, TemporalState)):
+            raise TypeError(f"state must be a PosteriorState or a "
+                            f"TemporalState, got {type(state).__name__}")
+        where = _dtype_device(state)[1]
+        if where != self.device:
+            raise ValueError(f"state lives on {where}, the server "
                              f"on {self.device}")
         with self._cv:
             if self._closed:
@@ -153,7 +179,7 @@ class GPServer:
         with self._registry_lock:
             self._models[name] = entry
 
-    def state(self, name: str) -> PosteriorState:
+    def state(self, name: str):
         return self._entry(name).state
 
     def models(self) -> Tuple[str, ...]:
@@ -197,12 +223,12 @@ class GPServer:
         use the same posterior even if update() swaps it meanwhile."""
         state = entry.state
         fn = entry.fns[diag]
-        X = X.to(state.Z.dtype)
+        X = X.to(_dtype_device(state)[0])
         if not self.use_buckets:
             return fn(state, X)
         return self._call_bucketed(fn, state, X, diag)
 
-    def _call_bucketed(self, fn, state: PosteriorState, X: torch.Tensor,
+    def _call_bucketed(self, fn, state, X: torch.Tensor,
                        diag: bool):
         B = X.shape[0]
         bucket = self._bucket(B)
@@ -344,13 +370,15 @@ class GPServer:
     # online learning
     # ------------------------------------------------------------------ #
 
-    def _as_data(self, A, state: PosteriorState) -> torch.Tensor:
-        return torch.as_tensor(A, device=self.device, dtype=state.Z.dtype)
+    def _as_data(self, A, state) -> torch.Tensor:
+        return torch.as_tensor(A, device=self.device,
+                               dtype=_dtype_device(state)[0])
 
     def update(self, name: str, X_new, Y_new, *, backend: str = "jnp",
                chunk: Optional[int] = None, bwd_backend: str = "auto") -> None:
         """Fold new observations into the named state (monoid combine +
-        O(M^3) refold) and swap it in atomically."""
+        O(M^3) refold; for a temporal state, the sequential filter forward)
+        and swap it in atomically."""
         entry = self._entry(name)
         with entry.lock:
             state = entry.state

@@ -13,7 +13,7 @@ triangular solves, no Cholesky. The raw statistics ride along so the state
 can absorb or shed data (`repro_torch.serve.online`) in O(M^3).
 
 The kernel object is not a field: functions here take it beside the state.
-Temporal states come with the temporal slice.
+A temporal model's state is `repro_torch.temporal.TemporalState`.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import svgp
 from repro_torch.core.psi_stats import SuffStats
 from repro_torch.gp.kernels import Kernel
+from repro_torch.temporal.model import TemporalState, _tree_nbytes, forecast
 
 Params = Dict[str, torch.Tensor]
 
@@ -50,11 +51,10 @@ class PosteriorState(NamedTuple):
 
     @property
     def nbytes(self) -> int:
-        """Resident bytes of every tensor in the state; constant for a
-        registration (every shape is fixed by (M, Q, D))."""
-        leaves = [*self.kern.values(), self.Z, self.log_beta, *self.stats,
-                  self.L, self.LA, self.Kuu_inv_mean]
-        return int(sum(t.numel() * t.element_size() for t in leaves))
+        """Resident bytes of every tensor in the state (the kernel's params
+        nested as a composite's are); constant for a registration (every
+        shape is fixed by (M, Q, D))."""
+        return _tree_nbytes(tuple(self))
 
 
 def build_state(kernel: Kernel, params: Params, stats: SuffStats, *,
@@ -92,12 +92,23 @@ def _predict_closure(kernel: Kernel, diag: bool):
     return fn
 
 
-def predict(kernel: Kernel, state: PosteriorState, Xt: torch.Tensor, *,
+def predict(kernel: Kernel, state, Xt: torch.Tensor, *,
             diag: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Posterior p(f*) at Xt from the cached state: mean (B, D) plus the
-    marginal variance (B,) (`diag=True`) or the full (B, B) covariance."""
+    marginal variance (B,) (`diag=True`) or the full (B, B) covariance.
+    A `repro_torch.temporal.TemporalState` gives O(B d^3) marginal
+    forecasts from its terminal filtered state (diag only)."""
+    if isinstance(state, TemporalState):
+        if not diag:
+            raise ValueError(
+                "diag=False (full predictive covariance) is not available "
+                "for a TemporalState: the served forecast state carries "
+                "per-timestamp marginals only; use "
+                "TemporalGPRegression.predict on the fitted model for "
+                "smoothed joint structure")
+        return forecast(kernel, state, Xt)
     if not isinstance(state, PosteriorState):
         raise TypeError(
-            f"predict takes a PosteriorState, got {type(state).__name__} "
-            f"(temporal states come with a later slice of the port)")
+            f"predict takes a PosteriorState or a TemporalState, got "
+            f"{type(state).__name__}")
     return _predict_closure(kernel, bool(diag))(state, Xt)

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels (marker `cuda`): each kernel
 (the fused forward and reverse, psi1 and psi2 and their reverses, K_fu and
 its reverse through the psi1 reverse kernel) against its plain PyTorch
-version on the card. Imports no JAX, so it runs
+version on the card, and a Product of RBFs through the fused and pallas
+statistics (one launch of each kernel per forward and backward). Imports no JAX, so it runs
 on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -551,4 +552,50 @@ def test_statistics_ignore_a_callers_tf32(card, backend):
     finally:
         torch.set_float32_matmul_precision("highest")
     for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# the kernels a Product of RBFs runs per forward + backward: (module, counter)
+PRODUCT_LAUNCHES = {
+    "fused": ((ss, "LAUNCHES"), (ss, "BWD_LAUNCHES")),
+    "pallas": ((p1, "LAUNCHES"), (p2, "LAUNCHES"), (ss, "PSI1_BWD_LAUNCHES"),
+               (ss, "PSI2_BWD_LAUNCHES")),
+}
+
+
+@pytest.mark.parametrize("backend", ("fused", "pallas"))
+def test_product_of_rbfs_launches_the_kernels(card, backend):
+    """A Product of RBFs delegates its expected statistics to the
+    equivalent RBF, so on the card one forward and backward launches each
+    of the backend's kernels once (B1, B2; or B5, B3, B6, B4); statistics
+    and the parts' gradients are the CPU plain versions' within TOL and
+    the single RBF's at the equivalent parameters bit for bit."""
+    from repro_torch.gp import kernels as gk
+
+    rng = np.random.default_rng(7)
+    N, M, D = 4099, 100, 3
+    kern = gk.Product(gk.RBF(1), gk.RBF(1))
+    params = {"k0": {"log_variance": 0.2, "log_lengthscale": [-0.3]},
+              "k1": {"log_variance": -0.1, "log_lengthscale": [0.4]}}
+    data = (rng.normal(size=(N, 1)), rng.uniform(0.05, 0.5, (N, 1)),
+            rng.normal(size=(N, D)), 1.5 * rng.normal(size=(M, 1)))
+
+    def run(device, product=True):
+        p = {s: {k: torch.tensor(v, dtype=torch.float64, device=device,
+                                 requires_grad=True) for k, v in part.items()}
+             for s, part in params.items()}
+        mu, S, Y, Z = (torch.as_tensor(a, device=device) for a in data)
+        k, kp = (kern, p) if product else kern._equivalent_rbf(p)
+        st = k.expected_suff_stats(kp, mu, S, Y, Z, backend=backend)
+        leaves = [p[s][k] for s in ("k0", "k1") for k in ("log_lengthscale", "log_variance")]
+        grads = torch.autograd.grad(st.psi2.sum() + st.psiY.sum(), leaves)
+        return [st.psi2.detach(), st.psiY.detach(), *grads]
+
+    before = [getattr(m, a) for m, a in PRODUCT_LAUNCHES[backend]]
+    got = run(card)
+    after = [getattr(m, a) for m, a in PRODUCT_LAUNCHES[backend]]
+    assert [a - b for a, b in zip(after, before)] == [1] * len(before)
+    for g, w in zip(got, run("cpu")):
+        assert _rel(g, w) <= TOL[torch.float64]
+    for g, w in zip(got, run(card, product=False)):
         assert torch.equal(g, w)

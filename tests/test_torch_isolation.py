@@ -40,7 +40,10 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device: the default is legitimate")
     from repro_torch import convert
-    from repro_torch.gp import BayesianGPLVM, SparseGPRegression, get
+    from repro_torch.data import gplvm_synthetic
+    from repro_torch.gp import (BayesianGPLVM, SparseGPRegression,
+                                TemporalGPRegression, available, get,
+                                regression)
     from repro_torch.serve import GPServer
 
     params = {"kern": {"log_variance": 0.0, "log_lengthscale": np.zeros(1)},
@@ -55,7 +58,35 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
         SparseGPRegression()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BayesianGPLVM(backend="fused")
+    for name in available():
+        kern = get(name)(get("rbf")(1), get("linear")(1)) \
+            if name in ("sum", "product") else get(name)(1)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            kern.init()
+        assert all(t.device.type == "cpu"
+                   for t in _leaves(kern.init(device="cpu")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TemporalGPRegression()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        regression(get("matern32")(1), backend="temporal")
+    fields = {"kern": {"log_variance": 0.0, "log_lengthscale": np.zeros(1)},
+              "log_beta": 0.0, "t_last": 1.0, "m": np.zeros((2, 1)),
+              "P": np.eye(2), "n": 3.0}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.temporal_state_from_numpy(fields)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gplvm_synthetic(0, 8)
     # the same calls run where the caller asks for the CPU
     GPServer(device="cpu").close()
     assert convert.params_from_numpy(params, device="cpu")["Z"].device.type == "cpu"
     assert BayesianGPLVM(device="cpu").device.type == "cpu"
+    assert TemporalGPRegression(device="cpu").device.type == "cpu"
+    assert regression(get("matern32")(1), backend="temporal",
+                      device="cpu").device.type == "cpu"
+    assert convert.temporal_state_from_numpy(fields, device="cpu").P.device.type == "cpu"
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]

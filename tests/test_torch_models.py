@@ -34,7 +34,8 @@ from repro.gp import SparseGPRegression as JSparseGPRegression
 from repro.gp import get as jget
 from repro_torch import convert
 from repro_torch.core import gplvm
-from repro_torch.gp import BayesianGPLVM, SparseGPRegression, get, regression
+from repro_torch.gp import (BayesianGPLVM, SparseGPRegression,
+                            TemporalGPRegression, get, regression)
 from repro_torch.optim.adam import flatten
 from repro_torch.serve import GPServer, online
 
@@ -196,8 +197,13 @@ def test_facades_refuse_unported_options():
     mesh = object()
     assert SparseGPRegression(mesh=mesh, backend="pallas", device="cpu").mesh is mesh
     assert BayesianGPLVM(mesh=mesh, device="cpu").mesh is mesh
-    with pytest.raises(NotImplementedError, match="temporal"):
-        regression(get("rbf")(1), backend="temporal")
+    # backend="temporal" is ported: it dispatches to TemporalGPRegression,
+    # which refuses a kernel without a state-space form as the reference does
+    with pytest.raises(ValueError, match="state-space"):
+        regression(get("rbf")(1), backend="temporal", device="cpu")
+    assert isinstance(regression(get("matern32")(1), backend="temporal",
+                                 parallel=False, device="cpu"),
+                      TemporalGPRegression)
     with pytest.raises(ValueError, match="backend"):
         regression(backend="bogus")
     assert isinstance(regression(M=4, stats_backend="fused", device="cpu"),
