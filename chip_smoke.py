@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and data-parallel paths
-on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving, training, data-parallel,
+persistence and tuning paths on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -108,7 +108,32 @@ Phases (any failure exits non-zero and prints no result):
    held to a one-shot sequential filter over the concatenated series
    (1e-10). None of B1-B7 is launched. Prints the step time, the update
    time a point and the forecast p50.
-13. Times, with the card's name and power limit: each kernel and its plain
+13. Persistence at the paper's shape, in float64 and float32: five states
+   (the SGPR's through "fused" (B1) and "pallas" (B7), the GP-LVM's
+   through "pallas" (B5, B3), a Product(RBF, RBF) GP-LVM's through
+   "fused", the temporal quickstart's) registered in a
+   `GPServer(store=, budget_bytes=<two states' bytes>)` and served round
+   robin: every answer after a lazy reload bitwise equal to the answer
+   before the eviction, peak resident bytes within the budget, evictions
+   and lazy reloads > 0; a 65,536-point `update` on an evicted SGPR state
+   bitwise equal to the same update on a server that never evicted;
+   `save_all()`, then `GPServer.load(store)` in a fresh spawned process,
+   cold and within the budget, answering bitwise as the first process
+   did. Prints the times of save, load_meta, load, a lazy reload and
+   save_all. Its state builds and update count towards B1, B3, B5 and
+   B7's launches.
+14. The autotuner, on (every earlier phase runs with REPRO_TORCH_TUNE=0
+   over a fresh cache file, so they launch the untuned geometry), its
+   cache in a temporary file: `tune.best_blocks` for all seven kernels in
+   both dtypes at M = 100, Q = 1 (each candidate wave count's time and
+   split counts, the winner, the measuring N and the cold resolution's
+   time), each kernel at every candidate held against its plain version
+   (phase 3's tolerances, two launches bitwise equal), `tune.best_chunk`
+   for "fused" and "pallas"; a second spawned process on the same cache
+   resolves the same winners with zero timing runs; a float32
+   `SparseGPRegression(backend="pallas", chunk="auto")` fit of 3 steps
+   from the cache. The tuner's launches count towards no main path.
+15. Times, with the card's name and power limit: each kernel and its plain
    version at the paper's shape (median of CUDA-event timings; a kernel's
    as one launch an event pair, its `ms`, and over 10 launches back to
    back, divided by 10, its `rate_ms`), the
@@ -149,6 +174,7 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.checkpoint.manager import flatten_with_keys  # noqa: E402
 from repro_torch.core import distributed, inference  # noqa: E402
 from repro_torch.gp import (BayesianGPLVM, ExactBatch, ExpectedBatch,  # noqa: E402
                             SparseGPRegression, get, suff_stats)
@@ -159,7 +185,9 @@ from repro_torch.kernels import psi1 as p1  # noqa: E402
 from repro_torch.kernels import psi2 as p2  # noqa: E402
 from repro_torch.kernels import suffstats as ss  # noqa: E402
 from repro_torch.optim.adam import flatten, tree_map  # noqa: E402
-from repro_torch.serve import GPServer, build_state  # noqa: E402
+from repro_torch.serve import GPServer, StateStore, build_state  # noqa: E402
+from repro_torch import tune  # noqa: E402
+from repro_torch.tune import autotune, search  # noqa: E402
 
 SEED = 0
 PAPER = (1_000_000, 100, 1, 3)  # N, M, Q, D: paper §4 (Q=1, M=100, D=3, 1e6 points)
@@ -838,9 +866,9 @@ def _grads_and_cotangents(model, params, Y, kernels=("suffstats_bwd_cuda",)) -> 
     real = {name: getattr(ops, name) for name in kernels}
 
     def spy(name):
-        def call(*args):
+        def call(*args, **kw):
             seen[name].append(args)
-            return real[name](*args)
+            return real[name](*args, **kw)
         return call
 
     for name in kernels:
@@ -1850,7 +1878,344 @@ def phase_temporal() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: times and the bounds
+# phase 13: persistence — the budgeted GPServer, its store and a restart
+# ---------------------------------------------------------------------------
+
+PERSIST_CHILD_TIMEOUT_S = 300
+PERSIST_KERNELS = ("suffstats_fwd", "kfu_fwd", "psi1_fwd", "psi2_fwd")  # B1, B7, B5, B3
+
+
+def persistence_states(data: dict, dtype: torch.dtype, temporal) -> dict:
+    """name -> (kernel, state) at the paper's shape in `dtype`: the SGPR's
+    state through "fused" (B1) and "pallas" (B7), the GP-LVM's through
+    "pallas" (B5, B3), a Product(RBF, RBF) GP-LVM's through "fused" (B1 at
+    the equivalent RBF) and the temporal quickstart's state `temporal`."""
+    def t(a):
+        return torch.as_tensor(a, device="cuda", dtype=dtype)
+
+    kernel = get("rbf")(1)
+    params = convert.params_from_numpy(data["params"], device="cuda", dtype=dtype)
+    exact = ExactBatch(t(data["X"]), t(data["Y"]), params["Z"])
+    expected = ExpectedBatch(t(data["mu"]), t(data["S"]), t(data["Y_lvm"]), params["Z"])
+    states = {}
+    for name, batch, backend in (("sgpr-fused", exact, "fused"),
+                                 ("sgpr-pallas", exact, "pallas"),
+                                 ("gplvm-pallas", expected, "pallas")):
+        stats = suff_stats(kernel, params["kern"], batch, backend=backend)
+        states[name] = (kernel, build_state(kernel, params, stats))
+    product = get("product")(get("rbf")(1), get("rbf")(1))
+    p_prod = product_params(params)
+    stats = suff_stats(product, p_prod["kern"], expected, backend="fused")
+    states["product-fused"] = (product, build_state(product, p_prod, stats))
+    states["temporal"] = temporal
+    return states
+
+
+def _persist_inputs(data: dict, states: dict, dtype: torch.dtype) -> dict:
+    """Each model's request: 256 test inputs, or 64 timestamps past the
+    temporal state's origin."""
+    Xt = torch.as_tensor(data["Xt"][:256], device="cuda", dtype=dtype)
+    t_last = float(states["temporal"][1].t_last)
+    Xf = t_last + torch.linspace(1e-3, 0.2, 64, device="cuda", dtype=torch.float64)[:, None]
+    return {name: Xf if name == "temporal" else Xt for name in states}
+
+
+def _same_bits(a, b) -> bool:
+    la, lb = ([t for _, t in flatten_with_keys(x)] for x in (a, b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def _persist_child(store: str, inputs: str, out: str, budget: int) -> None:
+    """A fresh process's side of the restart (a spawned child on cuda:0):
+    `GPServer.load` of the store within `budget`, then every model's
+    request; saves the answers and the server's metrics to `out`."""
+    torch.cuda.set_device(0)
+    requests = torch.load(inputs)
+    srv = GPServer.load(store, budget_bytes=budget, device="cuda")
+    cold = srv.metrics()
+    answers = {name: tuple(a.cpu() for a in srv.predict(name, X.to("cuda")))
+               for name, X in requests.items()}
+    torch.save({"cold": cold, "answers": answers, "metrics": srv.metrics(),
+                "models": srv.models()}, out)
+    srv.close()
+
+
+def _persist_in_child(store: Path, requests: dict, budget: int) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs, out = str(Path(tmp) / "inputs.pt"), str(Path(tmp) / "out.pt")
+        torch.save({k: v.cpu() for k, v in requests.items()}, inputs)
+        proc = multiprocessing.get_context("spawn").Process(
+            target=_persist_child, args=(str(store), inputs, out, budget))
+        proc.start()
+        proc.join(PERSIST_CHILD_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(30)
+        check(proc.exitcode == 0, f"the restart child exited with {proc.exitcode}")
+        return torch.load(out)
+
+
+def _ms(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def persistence_run(data: dict, dtype: torch.dtype, temporal, tmp: Path) -> dict:
+    """One dtype of phase 13; returns the launches and the times."""
+    name_dt = str(dtype)[6:]
+    zero_counts()
+    states = persistence_states(data, dtype, temporal)
+    requests = _persist_inputs(data, states, dtype)
+    sizes = sorted(s.nbytes for _, s in states.values())
+    budget = sizes[-1] + sizes[-2]  # two states' bytes
+    store = StateStore(tmp / f"store-{name_dt}")
+    times = {}
+    with GPServer(store=store, budget_bytes=budget, device="cuda") as srv:
+        before = {}
+        for name, (kernel, state) in states.items():
+            srv.register(name, kernel=kernel, state=state)
+            before[name] = srv.predict(name, requests[name])
+        for lap in range(2):  # every access evicts the LRU state and reloads its own
+            for name in states:
+                got = srv.predict(name, requests[name])
+                check(all(torch.equal(g, w) for g, w in zip(got, before[name])),
+                      f"{name_dt} {name}: the answer after a lazy reload differs "
+                      f"from the one before the eviction (lap {lap + 1})")
+        m = srv.metrics()
+        log(f"[persist] {name_dt}: {len(states)} models, budget {budget} bytes "
+            f"(two states); metrics {m}")
+        check(m["peak_resident_bytes"] <= budget and m["resident_bytes"] <= budget,
+              f"{name_dt}: resident bytes over the budget {m}")
+        check(m["evictions"] > 0 and m["lazy_loads"] > 0, f"{name_dt}: no eviction {m}")
+        # update an evicted SGPR state: it reloads, then folds through B1
+        check(srv._entry("sgpr-fused").state is None, "sgpr-fused is resident")
+        loads = m["lazy_loads"]
+        with GPServer(device="cuda") as plain:  # a server that never evicted
+            plain.register("sgpr-fused", kernel=states["sgpr-fused"][0],
+                           state=states["sgpr-fused"][1])
+            plain.update("sgpr-fused", data["X_new"], data["Y_new"], backend="fused")
+            want = plain.predict("sgpr-fused", requests["sgpr-fused"])
+            want_state = plain.state("sgpr-fused")
+        _, times["update_ms"] = _ms(lambda: srv.update(
+            "sgpr-fused", data["X_new"], data["Y_new"], backend="fused"))
+        check(srv.metrics()["lazy_loads"] == loads + 1, "update did not reload the state")
+        check(_same_bits(srv.state("sgpr-fused"), want_state),
+              f"{name_dt}: update on an evicted state differs from one never evicted")
+        got = srv.predict("sgpr-fused", requests["sgpr-fused"])
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{name_dt}: predictions after the update differ from a never-evicted server")
+        log(f"[persist] {name_dt}: update of {UPDATE_N} points on the evicted sgpr-fused "
+            f"state (reload + B1 + refold) bitwise equal to a server that never evicted")
+        # times of the store's operations
+        kernel, state = states["sgpr-pallas"]
+        _, times["save_ms"] = _ms(lambda: store.save("timing", kernel, state))
+        _, times["load_meta_ms"] = _ms(lambda: store.load_meta("timing"))
+        _, times["load_ms"] = _ms(lambda: store.load("timing", device="cuda"))
+        store.delete("timing")
+        cold = next(n for n in states if srv._entry(n).state is None)
+        _, times["lazy_reload_ms"] = _ms(lambda: srv.predict(cold, requests[cold]))
+        saved, times["save_all_ms"] = _ms(srv.save_all)
+        log(f"[persist] {name_dt}: save_all wrote {saved}")
+        check(srv.save_all() == (), "a second save_all wrote again")
+        after = {name: tuple(a.cpu() for a in srv.predict(name, requests[name]))
+                 for name in states}
+    torch.cuda.synchronize()
+    launches = counts()
+    # restart: a fresh process loads the store cold, within the budget
+    (child, restart_ms) = _ms(lambda: _persist_in_child(store.dir, requests, budget))
+    check(child["models"] == tuple(sorted(states)), f"restart models {child['models']}")
+    check(child["cold"]["resident_bytes"] == 0 and child["cold"]["registered"] == len(states),
+          f"the restarted server did not start cold: {child['cold']}")
+    check(child["metrics"]["peak_resident_bytes"] <= budget,
+          f"the restarted server went over its budget: {child['metrics']}")
+    for name in states:
+        check(all(torch.equal(g, w) for g, w in zip(child["answers"][name], after[name])),
+              f"{name_dt} {name}: the restarted process's answer differs")
+    log(f"[persist] {name_dt}: restart in a fresh process: cold, peak "
+        f"{child['metrics']['peak_resident_bytes']} <= {budget} bytes, every answer "
+        f"bitwise equal to the first process's ({restart_ms / 1e3:.1f} s with the "
+        f"process's start)")
+    log(f"[time] persistence {name_dt} (M={PAPER[1]}, state {sizes[-1]} bytes): save "
+        f"{times['save_ms']:.3f} ms, load_meta {times['load_meta_ms']:.3f} ms, load "
+        f"{times['load_ms']:.3f} ms, lazy reload + predict {times['lazy_reload_ms']:.3f} ms, "
+        f"update on an evicted state {times['update_ms']:.3f} ms, save_all "
+        f"{times['save_all_ms']:.3f} ms ({len(saved)} states)")
+    check(all(launches[k] > 0 for k in PERSIST_KERNELS),
+          f"{name_dt}: the persistence path skipped a kernel: {launches}")
+    return {"launches": launches, "times": times}
+
+
+def phase_persistence(data: dict) -> dict:
+    """GPServer(store=, budget_bytes=) at the paper's shape in both dtypes:
+    five states (SGPR fused and pallas, GP-LVM pallas, Product(RBF, RBF)
+    GP-LVM fused, the temporal quickstart's) registered under a budget of
+    two states; each answer after a lazy reload bitwise equal to the one
+    before the eviction; an update of 65,536 points on an evicted SGPR
+    state bitwise equal to the same update on a server that never evicted;
+    save_all, then GPServer.load in a fresh process, cold and within the
+    budget, answering bitwise as the first process did. Every counter is
+    set to 0 before each dtype's state builds and read after its server
+    closes. Returns the launches and times per dtype."""
+    from repro_torch.gp import regression
+
+    t_np, Y_np = temporal_series(PAPER[0])
+    model = regression(get("matern32")(1), backend="temporal", device="cuda")
+    model.fit(torch.as_tensor(t_np, device="cuda"), torch.as_tensor(Y_np, device="cuda"),
+              steps=0)
+    temporal = (model.kernel, model.export_state())
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in (torch.float64, torch.float32):
+            out[dtype] = persistence_run(data, dtype, temporal, Path(tmp))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the autotuner on the card
+# ---------------------------------------------------------------------------
+
+TUNE_CHUNK_BACKENDS = ("fused", "pallas")
+AUTO_STEPS = 3
+
+
+def _tune_child(cache_file: str, out: str) -> None:
+    """A second process on the same cache file (a spawned child on
+    cuda:0): tuning on, every key of phase 14 resolved again."""
+    os.environ[autotune.TUNE_ENV] = "1"
+    os.environ[tune.CACHE_ENV] = cache_file
+    torch.cuda.set_device(0)
+    M, Q = PAPER[1], PAPER[2]
+    won = {}
+    for dtype in (torch.float32, torch.float64):
+        for name in search.KERNELS:
+            won[str(dtype), name] = tune.best_blocks(name, dtype=dtype, m=M, q=Q,
+                                                     device="cuda")
+        for backend in TUNE_CHUNK_BACKENDS:
+            won[str(dtype), backend] = tune.best_chunk(n=PAPER[0], m=M, q=Q, d=PAPER[3],
+                                                       dtype=dtype, backend=backend,
+                                                       device="cuda")
+    torch.save({"runs": tune.timing_runs(), "winners": won}, out)
+
+
+def _tune_in_child(cache_file: Path) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "out.pt")
+        proc = multiprocessing.get_context("spawn").Process(
+            target=_tune_child, args=(str(cache_file), out))
+        proc.start()
+        proc.join(PERSIST_CHILD_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(30)
+        check(proc.exitcode == 0, f"the warm-cache child exited with {proc.exitcode}")
+        return torch.load(out)
+
+
+def tune_kernel(name: str, dtype: torch.dtype, card) -> int:
+    """Resolve one kernel's wave count cold, print every candidate's time,
+    and hold the kernel at every candidate against its plain version."""
+    M, Q = PAPER[1], PAPER[2]
+    runs = tune.timing_runs()
+    win, cold_ms = _ms(lambda: tune.best_blocks(name, dtype=dtype, m=M, q=Q, device="cuda"))
+    entry = tune.lookup(tune.make_key("blocks", name, dtype, M, Q, device="cuda"))
+    prob = search.Problem(entry["N"], M, Q, PAPER[3])
+    cands = search.candidate_blocks(name, problem=prob, dtype=dtype, card=card)
+    check(win in cands and tune.timing_runs() - runs == len(cands),
+          f"{name}: winner {win} of {cands}, {tune.timing_runs() - runs} timing runs")
+    args64 = autotune.kernel_inputs(name, prob, torch.float64, "cuda")
+    want = _as_tuple(search.KERNELS[name].plain(*args64))
+    args = tuple(a.to(dtype) for a in args64)
+    errs = []
+    for w in cands:
+        got = _as_tuple(autotune.run_kernel(name, args, w))
+        again = _as_tuple(autotune.run_kernel(name, args, w))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name} at {w} waves: two launches differ")
+        errs.append(max(rel_err(g, p) for g, p in zip(got, want)))
+    splits = {w: search.launch_plan(name, w, prob, dtype, card).counts for w in cands}
+    log(f"[tune] {name} {str(dtype)[6:]} M={M} Q={Q}, measured at N={prob.N}: "
+        + ", ".join(f"{w} waves (splits {splits[w]}) {entry['timings_s'][str(w)] * 1e3:.4f} ms"
+                    f" err {e:.2e}" for w, e in zip(cands, errs))
+        + f"; winner {win} waves; cold resolution {cold_ms:.1f} ms")
+    check(max(errs) <= TOL[dtype], f"{name} {dtype} vs plain at its candidates: {errs}")
+    return win
+
+
+def phase_autotune(data: dict) -> dict:
+    """The tuner as the card runs it, tuning on and its cache in a
+    temporary file: best_blocks for all seven kernels in both dtypes at
+    M = 100, Q = 1 (every candidate's time, the winner, each candidate held
+    against the plain version with phase 3's tolerances, two launches
+    bitwise equal), best_chunk for "fused" and "pallas"; a second process
+    on the same cache resolves the same winners with zero timing runs; then
+    a SparseGPRegression(backend="pallas", chunk="auto") fit of AUTO_STEPS
+    steps, resolved from the cache. The tuner's launches are no main
+    path's: the counters are saved before and restored after. Tuning is
+    off again afterwards."""
+    saved = counts()
+    card = search.Card(torch.cuda.current_device())
+    M, Q, D = PAPER[1], PAPER[2], PAPER[3]
+    winners = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_file = Path(tmp) / "tune.json"
+        old_cache = os.environ[tune.CACHE_ENV]
+        os.environ[tune.CACHE_ENV] = str(cache_file)
+        autotune._ENABLED_OVERRIDE = True
+        tune.clear_memo()
+        try:
+            for dtype in (torch.float32, torch.float64):
+                for name in search.KERNELS:
+                    winners[str(dtype), name] = tune_kernel(name, dtype, card)
+                for backend in TUNE_CHUNK_BACKENDS:
+                    c, cold_ms = _ms(lambda: tune.best_chunk(
+                        n=PAPER[0], m=M, q=Q, d=D, dtype=dtype, backend=backend,
+                        device="cuda"))
+                    entry = tune.lookup(tune.make_key(
+                        "chunk", "streaming_suff_stats", dtype, M, Q,
+                        extra=f"backend={backend}", device="cuda"))
+                    log(f"[tune] chunk {backend} {str(dtype)[6:]} M={M} Q={Q}, measured at "
+                        f"N={entry['N']}: " + ", ".join(
+                            f"{k} {v * 1e3:.3f} ms"
+                            for k, v in sorted(entry["timings_s"].items(), key=lambda i: int(i[0])))
+                        + f"; winner {c}; cold resolution {cold_ms:.1f} ms")
+                    winners[str(dtype), backend] = c
+            child = _tune_in_child(cache_file)
+            log(f"[tune] a second process on the same cache: {child['runs']} timing runs, "
+                f"winners {'the same' if child['winners'] == winners else child['winners']}")
+            check(child["runs"] == 0 and child["winners"] == winners,
+                  "the warm-cache process timed or resolved differently")
+            zero_counts()
+            runs = tune.timing_runs()
+            X, Y = _as(data["X"], torch.float32), _as(data["Y"], torch.float32)
+            model = SparseGPRegression(M=M, backend="pallas", chunk="auto",
+                                       device="cuda").fit(X, Y, steps=AUTO_STEPS,
+                                                          log_every=1)
+            torch.cuda.synchronize()
+            fit = counts()
+            h = model.history
+            log(f"[tune] float32 sgpr pallas chunk=\"auto\" (chunk "
+                f"{winners[str(torch.float32), 'pallas']}): loss {h[0]:.6f} -> {h[-1]:.6f} "
+                f"over {len(h)} steps; launches {fit}; timing runs {tune.timing_runs() - runs}")
+            check(len(h) == AUTO_STEPS and all(np.isfinite(h)) and h[-1] < h[0],
+                  f"chunk='auto' fit: losses {h}")
+            check(tune.timing_runs() == runs, "the chunk='auto' fit timed again")
+            check(fit["kfu_fwd"] > 0 and fit["psi1_bwd"] > 0,
+                  f"the chunk='auto' fit skipped B7 or B6: {fit}")
+        finally:
+            autotune._ENABLED_OVERRIDE = None
+            os.environ[tune.CACHE_ENV] = old_cache
+            tune.clear_memo()
+    set_counts(saved)  # the tuner's launches are not a main path's
+    return winners
+
+
+# ---------------------------------------------------------------------------
+# phase 15: times and the bounds
 # ---------------------------------------------------------------------------
 
 def _bound(nbytes: int, flops: int, exps: int, dtype) -> tuple:
@@ -2187,6 +2552,11 @@ def main() -> int:
               "a CUDA device", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # the earlier phases launch today's geometry: tuning off (inherited by
+    # every spawned child), over a cache no other run wrote
+    scratch = tempfile.TemporaryDirectory()
+    os.environ[autotune.TUNE_ENV] = "0"
+    os.environ[tune.CACHE_ENV] = str(Path(scratch.name) / "tune.json")
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -2215,10 +2585,14 @@ def main() -> int:
         phase("half precision through the ops", phase_half)
         family = phase("kernel family", phase_kernel_family, data)
         phase("temporal", phase_temporal)
+        persist = phase("persistence", phase_persistence, data)
+        phase("autotune", phase_autotune, data)
         times = phase("times", phase_times, trained, pallas, sgpr, data)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        scratch.cleanup()
     kernels = []
     for dtype in (torch.float32, torch.float64):
         name = str(dtype)[6:]
@@ -2226,8 +2600,10 @@ def main() -> int:
         log(f"[time] predict p50 {name}: B=1 {p50[1]:.3f} ms, B=256 {p50[256]:.3f} ms")
         # the Product-of-RBFs fits (phase 11) run in float64
         product = family if dtype == torch.float64 else dict.fromkeys(family, 0)
+        stored = persist[dtype]["launches"]  # phase 13's state builds and update
         kernels.append({"name": f"suffstats_fwd_{name}", **ROUTE,
-                        "launches": served[dtype]["launches"] + product["suffstats_fwd"],
+                        "launches": served[dtype]["launches"] + product["suffstats_fwd"]
+                        + stored["suffstats_fwd"],
                         "max_abs_err": errs[dtype], **times[dtype, "fwd"]})
         kernels.append({"name": f"suffstats_bwd_{name}", **ROUTE_BWD,
                         "launches": trained[dtype]["launches"]["bwd"]
@@ -2236,7 +2612,7 @@ def main() -> int:
         # B3-B6 from the GP-LVM's pallas path, B7 from the SGPR's
         launches = {**pallas[dtype]["launches"],
                     "kfu_fwd": sgpr[dtype]["launches"]["kfu_fwd"]}
-        launches = {k: v + product[k] for k, v in launches.items()}
+        launches = {k: v + product[k] + stored[k] for k, v in launches.items()}
         for kernel, route in SINGLE_ROUTES.items():
             kernels.append({"name": f"{kernel}_{name}", **route,
                             "launches": launches[kernel],

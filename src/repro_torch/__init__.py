@@ -14,5 +14,7 @@ single-statistic ops with their plain versions and CUDA kernels),
 whole family), `gp.stats`, `gp.models` (`SparseGPRegression`,
 `BayesianGPLVM`, `regression`), `temporal` (the state-space backend),
 `serve` (posterior and temporal states, online update/downdate/refit,
-`GPServer`), `data.synthetic` and `convert`.
+`GPServer` with its store and byte budget, `StateStore`), `checkpoint`,
+`tune` (the launch-geometry and chunk autotuner), `data.synthetic` and
+`convert`.
 """

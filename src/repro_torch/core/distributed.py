@@ -35,7 +35,7 @@ covers those.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -215,7 +215,7 @@ def _gplvm_stats(params, Y_local, group, kernel, backend, chunk, bwd_backend):
 # ---------------------------------------------------------------------------
 
 def gplvm_loss_dist(mesh, *, kernel: Optional[Kernel] = None,
-                    backend: str = "jnp", chunk: Optional[int] = None,
+                    backend: str = "jnp", chunk: Union[int, str, None] = None,
                     bwd_backend: str = "auto"):
     """Distributed GP-LVM negative ELBO per datapoint: loss(params, Y_local)
     with Y and q(X) this rank's shards and the globals replicated; the same
@@ -234,7 +234,7 @@ def gplvm_loss_dist(mesh, *, kernel: Optional[Kernel] = None,
 
 
 def sgpr_loss_dist(mesh, *, kernel: Optional[Kernel] = None,
-                   backend: str = "jnp", chunk: Optional[int] = None,
+                   backend: str = "jnp", chunk: Union[int, str, None] = None,
                    bwd_backend: str = "auto"):
     """Distributed sparse-GP-regression negative bound per datapoint:
     loss(params, X_local, Y_local)."""
@@ -254,7 +254,7 @@ def sgpr_loss_dist(mesh, *, kernel: Optional[Kernel] = None,
 
 
 def sgpr_stats_dist(mesh, *, kernel: Optional[Kernel] = None,
-                    backend: str = "jnp", chunk: Optional[int] = None,
+                    backend: str = "jnp", chunk: Union[int, str, None] = None,
                     bwd_backend: str = "auto"):
     """The SGPR's O(N M^2) statistics pass for the posterior and prediction,
     sharded like the loss: stats_fn(params, X_local, Y_local) -> the summed
@@ -270,7 +270,7 @@ def sgpr_stats_dist(mesh, *, kernel: Optional[Kernel] = None,
 
 
 def gplvm_stats_dist(mesh, *, kernel: Optional[Kernel] = None,
-                     backend: str = "jnp", chunk: Optional[int] = None,
+                     backend: str = "jnp", chunk: Union[int, str, None] = None,
                      bwd_backend: str = "auto"):
     """The GP-LVM's statistics pass for the posterior: stats_fn(params,
     Y_local) -> the summed `SuffStats`."""

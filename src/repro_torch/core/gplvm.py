@@ -13,7 +13,7 @@ Every entry point takes an optional `kernel` (default: the paper's RBF).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -69,7 +69,7 @@ def kl_qp(q_mu: torch.Tensor, q_logS: torch.Tensor) -> torch.Tensor:
 def local_stats(params: Params, Y_local: torch.Tensor, *,
                 kernel: Optional[Kernel] = None,
                 backend: str = "jnp",
-                chunk: Optional[int] = None,
+                chunk: Union[int, str, None] = None,
                 bwd_backend: str = "auto") -> psi_stats.SuffStats:
     """Sufficient statistics of the local data, kernel-dispatched. `chunk=`
     streams the datapoints (O(chunk * M) live memory); `backend` is "jnp",
@@ -83,7 +83,7 @@ def local_stats(params: Params, Y_local: torch.Tensor, *,
 
 
 def bound(params: Params, Y: torch.Tensor, *, kernel: Optional[Kernel] = None,
-          backend: str = "jnp", chunk: Optional[int] = None,
+          backend: str = "jnp", chunk: Union[int, str, None] = None,
           bwd_backend: str = "auto") -> torch.Tensor:
     """Single-device GP-LVM evidence lower bound."""
     stats = local_stats(params, Y, kernel=kernel, backend=backend, chunk=chunk,
@@ -105,7 +105,7 @@ def bound_from_stats(
 
 
 def loss(params: Params, Y: torch.Tensor, *, kernel: Optional[Kernel] = None,
-         backend: str = "jnp", chunk: Optional[int] = None,
+         backend: str = "jnp", chunk: Union[int, str, None] = None,
          bwd_backend: str = "auto") -> torch.Tensor:
     """Negative ELBO per datapoint (scale-stable objective for Adam)."""
     return -bound(params, Y, kernel=kernel, backend=backend, chunk=chunk,

@@ -18,7 +18,8 @@ ones for regression via S -> 0; the CUDA kernels on the card), the
 single-statistic ops ("pallas": K_fu for regression, psi1 and psi2 for the
 GP-LVM) or plain PyTorch ("jnp"); `bwd_backend=` picks the ops' reverse
 passes ("auto": the reverse kernels on the card); `chunk=` streams the
-plain statistics over N in chunks of that size. `device=` is where data and
+plain statistics over N in chunks of that size ("auto": the autotuner's
+measured size, `repro_torch.tune.best_chunk`). `device=` is where data and
 parameters live: the CUDA device unless ``device="cpu"``; numpy arrays and
 tensors given to `fit` and `predict` are moved there in their own dtype.
 With `mesh=`, `fit`, `posterior`, `predict` and `export_state` take the
@@ -29,9 +30,6 @@ Matern in `BayesianGPLVM` (no closed-form psi statistics), a non-RBF
 kernel with backend="fused"/"pallas" (an all-RBF `Product` delegates to
 the equivalent RBF and runs them). `regression(backend="temporal")` is
 `repro_torch.temporal.TemporalGPRegression`.
-
-Not ported yet, raising `NotImplementedError`: `chunk="auto"` (the
-autotuner).
 """
 from __future__ import annotations
 
@@ -197,7 +195,8 @@ class SparseGPRegression(_CollapsedGPModel):
         K_fu kernel with the two products as matrix products; "fused" rides
         the fused statistics kernels with S -> 0; both kernelized in both
         directions).
-      chunk: stream the statistics in chunks of this size; None = one shot.
+      chunk: stream the statistics in chunks of this size ("auto": the
+        tuner's); None = one shot.
       bwd_backend: "auto" | "pallas" | "jnp" — the ops' reverse passes.
       device: where data and parameters live ("cuda" by default).
     """

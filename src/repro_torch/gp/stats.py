@@ -7,7 +7,8 @@ supplies the math, and `backend` routes the hot path through the fused op
 ("fused"), the single-statistic ops ("pallas": K_fu for the exact
 statistics, psi1 and psi2 for the expected ones) or plain PyTorch ("jnp").
 
-`chunk=` streams the N datapoints in chunks of that size and combines the
+`chunk=` streams the N datapoints in chunks of that size (``"auto"``: the
+autotuner's measured size) and combines the
 per-chunk `SuffStats` through the monoid: a Python loop over the full
 chunks, then one explicit tail chunk (no padding), so peak live memory is
 O(chunk * M + M^2) regardless of N. Each chunk of the plain and "pallas"
@@ -64,15 +65,22 @@ def streaming_suff_stats(kernel: Kernel, params: Params, batch: Batch, *,
                          bwd_backend: str = "auto") -> SuffStats:
     """`suff_stats` as a loop over N in chunks: O(chunk * M + M^2) live,
     each chunk of the plain and "pallas" backends checkpointed. A
-    non-dividing N ends in an explicit tail chunk."""
+    non-dividing N ends in an explicit tail chunk. ``chunk="auto"``
+    resolves through `repro_torch.tune.best_chunk` (the measured winner
+    when tuned or cached, DEFAULT_CHUNK otherwise); every chunked caller —
+    the facades, `serve.online`, the `mesh=` path — routes through here."""
     if not isinstance(batch, (ExactBatch, ExpectedBatch)):
         raise TypeError(f"expected ExactBatch or ExpectedBatch, got {type(batch).__name__}")
     if isinstance(chunk, str):
-        if chunk == "auto":
-            raise NotImplementedError(
-                'chunk="auto" needs the autotuner (repro.tune), which comes '
-                'with a later slice of the port; pass a positive int')
-        raise ValueError(f'chunk must be a positive int or "auto", got {chunk!r}')
+        if chunk != "auto":
+            raise ValueError(f'chunk must be a positive int or "auto", got {chunk!r}')
+        from repro_torch import tune  # tune measures through this function
+
+        first = batch[0]
+        chunk = tune.best_chunk(
+            n=first.shape[0], m=batch.Z.shape[0], q=batch.Z.shape[1],
+            d=batch.Y.shape[1], dtype=first.dtype, backend=backend,
+            bwd_backend=bwd_backend, device=first.device)
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     per_point = [a for name, a in zip(batch._fields, batch) if name != "Z"]

@@ -35,16 +35,16 @@ def kfu_plain(X, Z, variance, lengthscale):
     return variance * torch.exp(expo)
 
 
-def kfu_cuda(X, Z, variance, lengthscale):
+def kfu_cuda(X, Z, variance, lengthscale, *, waves: int = 1):
     """K_fu (N, M) from the CUDA kernel, on X's device and stream, in the
-    input dtype. Raises on inputs the kernel does not take and if the launch
-    fails."""
+    input dtype; its grid fills `waves` waves of the card (`cross_splits`).
+    Raises on inputs the kernel does not take and if the launch fails."""
     global LAUNCHES
     check_inputs(X, None, None, Z, variance, lengthscale, what="kfu_cuda",
-                 per_point=True)
+                 per_point=True, waves=waves)
     N, Q = X.shape
     M = Z.shape[0]
-    cols, P = cross_launch_splits("kfu_fwd", X, M)
+    cols, P = cross_launch_splits("kfu_fwd", X, M, waves)
     l2 = (lengthscale * lengthscale).contiguous()
     v = variance.reshape(1).contiguous()
     out = X.new_empty(N, M)

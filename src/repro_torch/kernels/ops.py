@@ -20,10 +20,22 @@ the first input's dtype (mu's, or X's for `kfu`) at the op's boundary and
 each cotangent is returned in its own input's dtype. The kernels take
 float32 and float64; half-precision inputs (bfloat16, float16) on the card
 go through them in float32 and come back in their own dtypes, the
-reference's compiled policy (its kernels compute in float32). There is no
-`block=` and no autotuner yet.
+reference's compiled policy (its kernels compute in float32).
+
+Launch geometry: `block=` / `bwd_block=` (the reference's names) pin the
+forward / reverse kernel's N-split count, as a number of waves of the
+card's resident blocks (`repro_torch.tune.search`); `None` consults
+`tune.best_blocks` for that direction under the reference's kernel name
+(`suffstats_pallas`, `suffstats_bwd_pallas`, `kfu_pallas`, `psi1_pallas`,
+`psi1_bwd_pallas` — K_fu's reverse too —, `psi2_pallas`,
+`psi2_bwd_pallas`), at the moment the kernel launches. With tuning off
+and nothing cached that is one wave, the split counts of an untuned
+launch. The CPU path has no grid: it never consults the tuner and ignores
+a pinned value.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,14 +58,57 @@ def _check_bwd_backend(bwd_backend: str) -> None:
             f"bwd_backend must be one of {BWD_BACKENDS}, got {bwd_backend!r}")
 
 
+def _check_block(block, what: str) -> Optional[int]:
+    if block is None:
+        return None
+    if isinstance(block, bool) or not isinstance(block, int) or block < 1:
+        raise ValueError(f"{what} must be None or a positive int (waves of "
+                         f"the card's resident blocks), got {block!r}")
+    return block
+
+
+class _Knobs(NamedTuple):
+    """An op's static knobs: the reverse-pass choice, the tuner's names of
+    its forward and reverse kernels, the pinned wave counts (None: ask the
+    tuner) and M for the tuner's key."""
+    bwd_backend: str
+    fwd_name: str
+    bwd_name: str
+    block: Optional[int]
+    bwd_block: Optional[int]
+    m: int
+
+
+def _knobs(bwd_backend, fwd_name, bwd_name, block, bwd_block, Z) -> _Knobs:
+    _check_bwd_backend(bwd_backend)
+    return _Knobs(bwd_backend, fwd_name, bwd_name, _check_block(block, "block"),
+                  _check_block(bwd_block, "bwd_block"), int(Z.shape[0]))
+
+
 _HALF = (torch.bfloat16, torch.float16)
 
 
-def _on_card(kernel, tensors, dtype):
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if dtype in _HALF else dtype
+
+
+def _waves(name: str, block: Optional[int], x: torch.Tensor, m: int) -> int:
+    """The wave count of a launch on x's card: `block` if pinned, else the
+    tuner's winner for `name` at (dtype, M, Q), else one wave."""
+    if block is not None:
+        return block
+    from repro_torch import tune  # tune measures through these wrappers
+
+    win = tune.best_blocks(name, dtype=_compute_dtype(x.dtype), m=m,
+                           q=x.shape[1], device=x.device)
+    return tune.DEFAULT_WAVES if win is None else win
+
+
+def _on_card(kernel, tensors, dtype, waves: int):
     """`kernel` on the card's tensors in the dtype it computes in (float32
-    for half inputs), each output cast back to `dtype`."""
-    ct = torch.float32 if dtype in _HALF else dtype
-    out = kernel(*(t.to(ct).contiguous() for t in tensors))
+    for half inputs) at `waves`, each output cast back to `dtype`."""
+    ct = _compute_dtype(dtype)
+    out = kernel(*(t.to(ct).contiguous() for t in tensors), waves=waves)
     if ct == dtype:
         return out
     if isinstance(out, tuple):
@@ -61,32 +116,35 @@ def _on_card(kernel, tensors, dtype):
     return out.to(dtype)
 
 
-def _forward(ctx, inputs, bwd_backend, plain, kernel):
+def _forward(ctx, inputs, knobs: _Knobs, plain, kernel):
     """Save the inputs cast to mu's dtype, then run the plain version on
     CPU tensors and the kernel on CUDA tensors."""
     ctx.dtypes = [t.dtype for t in inputs]
-    ctx.bwd_backend = bwd_backend
+    ctx.knobs = knobs
     x = [t.to(inputs[0].dtype) for t in inputs]
     ctx.save_for_backward(*x)
     if x[0].device.type == "cpu":
         return plain(*x)
-    return _on_card(kernel, x, x[0].dtype)
+    return _on_card(kernel, x, x[0].dtype,
+                    _waves(knobs.fwd_name, knobs.block, x[0], knobs.m))
 
 
 def _backward(ctx, cotangents, plain, kernel):
     """The reverse pass `bwd_backend` picks, each cotangent in its input's
-    dtype (None where no gradient is needed), plus None for the knob."""
+    dtype (None where no gradient is needed), plus None for the knobs."""
     x = ctx.saved_tensors
+    knobs = ctx.knobs
     g = [c.to(x[0].dtype) for c in cotangents]
     on_cpu = x[0].device.type == "cpu"
-    if ctx.bwd_backend == "jnp" or (ctx.bwd_backend == "auto" and on_cpu):
+    if knobs.bwd_backend == "jnp" or (knobs.bwd_backend == "auto" and on_cpu):
         grads = plain(*x, *g)
     elif on_cpu:
         raise ValueError(
             "bwd_backend='pallas' needs CUDA tensors: the reverse kernel "
             "has no CPU mode; use 'auto' or 'jnp' on the CPU")
     else:
-        grads = _on_card(kernel, (*x, *g), x[0].dtype)
+        grads = _on_card(kernel, (*x, *g), x[0].dtype,
+                         _waves(knobs.bwd_name, knobs.bwd_block, x[0], knobs.m))
     return (*(gr.to(dt) if need else None for gr, dt, need in
               zip(grads, ctx.dtypes, ctx.needs_input_grad)), None)
 
@@ -97,8 +155,8 @@ def _backward(ctx, cotangents, plain, kernel):
 class _SuffStats(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, mu, S, Y, Z, variance, lengthscale, bwd_backend):
-        return _forward(ctx, (mu, S, Y, Z, variance, lengthscale), bwd_backend,
+    def forward(ctx, mu, S, Y, Z, variance, lengthscale, knobs):
+        return _forward(ctx, (mu, S, Y, Z, variance, lengthscale), knobs,
                         suffstats_fused_plain, suffstats_cuda)
 
     @staticmethod
@@ -109,8 +167,8 @@ class _SuffStats(torch.autograd.Function):
 class _Kfu(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, X, Z, variance, lengthscale, bwd_backend):
-        return _forward(ctx, (X, Z, variance, lengthscale), bwd_backend,
+    def forward(ctx, X, Z, variance, lengthscale, knobs):
+        return _forward(ctx, (X, Z, variance, lengthscale), knobs,
                         kfu_plain, kfu_cuda)
 
     @staticmethod
@@ -121,8 +179,8 @@ class _Kfu(torch.autograd.Function):
 class _Psi1(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, mu, S, Z, variance, lengthscale, bwd_backend):
-        return _forward(ctx, (mu, S, Z, variance, lengthscale), bwd_backend,
+    def forward(ctx, mu, S, Z, variance, lengthscale, knobs):
+        return _forward(ctx, (mu, S, Z, variance, lengthscale), knobs,
                         psi1_plain, psi1_cuda)
 
     @staticmethod
@@ -133,8 +191,8 @@ class _Psi1(torch.autograd.Function):
 class _Psi2(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, mu, S, Z, variance, lengthscale, bwd_backend):
-        return _forward(ctx, (mu, S, Z, variance, lengthscale), bwd_backend,
+    def forward(ctx, mu, S, Z, variance, lengthscale, knobs):
+        return _forward(ctx, (mu, S, Z, variance, lengthscale), knobs,
                         psi2_plain, psi2_cuda)
 
     @staticmethod
@@ -143,33 +201,46 @@ class _Psi2(torch.autograd.Function):
 
 
 def suffstats(mu, S, Y, Z, variance, lengthscale, *,
-              bwd_backend: str = "auto"):
+              bwd_backend: str = "auto", block: Optional[int] = None,
+              bwd_block: Optional[int] = None):
     """Fused (psi2 (M, M), psiY (M, D)) in one pass over N, in mu's dtype,
     differentiable through the hand-derived reverse pass that
-    `bwd_backend` selects."""
-    _check_bwd_backend(bwd_backend)
-    return _SuffStats.apply(mu, S, Y, Z, variance, lengthscale, bwd_backend)
+    `bwd_backend` selects. `block` / `bwd_block` pin the forward / reverse
+    kernel's waves; None consults the tuner."""
+    knobs = _knobs(bwd_backend, "suffstats_pallas", "suffstats_bwd_pallas",
+                   block, bwd_block, Z)
+    return _SuffStats.apply(mu, S, Y, Z, variance, lengthscale, knobs)
 
 
-def kfu(X, Z, variance, lengthscale, *, bwd_backend: str = "auto"):
+def kfu(X, Z, variance, lengthscale, *, bwd_backend: str = "auto",
+        block: Optional[int] = None, bwd_block: Optional[int] = None):
     """RBF cross covariance K_fu (N, M) in X's dtype, differentiable through
     the hand-derived reverse pass that `bwd_backend` selects (psi1's at
-    S = 0: the psi1 reverse kernel on the card)."""
-    _check_bwd_backend(bwd_backend)
-    return _Kfu.apply(X, Z, variance, lengthscale, bwd_backend)
+    S = 0: the psi1 reverse kernel on the card, so its tuner key is
+    `psi1_bwd_pallas`). `block` / `bwd_block` pin the waves; None consults
+    the tuner."""
+    knobs = _knobs(bwd_backend, "kfu_pallas", "psi1_bwd_pallas", block,
+                   bwd_block, Z)
+    return _Kfu.apply(X, Z, variance, lengthscale, knobs)
 
 
-def psi1(mu, S, Z, variance, lengthscale, *, bwd_backend: str = "auto"):
+def psi1(mu, S, Z, variance, lengthscale, *, bwd_backend: str = "auto",
+         block: Optional[int] = None, bwd_block: Optional[int] = None):
     """Psi1 statistic (N, M) in mu's dtype, differentiable through the
     hand-derived reverse pass that `bwd_backend` selects (eq. (10)-(14),
-    branch weight W1 = g psi1)."""
-    _check_bwd_backend(bwd_backend)
-    return _Psi1.apply(mu, S, Z, variance, lengthscale, bwd_backend)
+    branch weight W1 = g psi1). `block` / `bwd_block` pin the waves; None
+    consults the tuner."""
+    knobs = _knobs(bwd_backend, "psi1_pallas", "psi1_bwd_pallas", block,
+                   bwd_block, Z)
+    return _Psi1.apply(mu, S, Z, variance, lengthscale, knobs)
 
 
-def psi2(mu, S, Z, variance, lengthscale, *, bwd_backend: str = "auto"):
+def psi2(mu, S, Z, variance, lengthscale, *, bwd_backend: str = "auto",
+         block: Optional[int] = None, bwd_block: Optional[int] = None):
     """Psi2 statistic (M, M) in mu's dtype, differentiable through the
     hand-derived reverse pass that `bwd_backend` selects (the fused op's
-    psi2 branch alone: eq. (9), (15)-(20))."""
-    _check_bwd_backend(bwd_backend)
-    return _Psi2.apply(mu, S, Z, variance, lengthscale, bwd_backend)
+    psi2 branch alone: eq. (9), (15)-(20)). `block` / `bwd_block` pin the
+    waves; None consults the tuner."""
+    knobs = _knobs(bwd_backend, "psi2_pallas", "psi2_bwd_pallas", block,
+                   bwd_block, Z)
+    return _Psi2.apply(mu, S, Z, variance, lengthscale, knobs)

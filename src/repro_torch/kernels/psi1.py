@@ -21,7 +21,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.suffstats import _psi1_weighted, card_of, check_inputs, launch
+from repro_torch.kernels.suffstats import (Split, _psi1_weighted, card_of,
+                                           check_inputs, launch)
 
 # incremented once per launch of the CUDA kernel, and nowhere else
 LAUNCHES = 0
@@ -53,12 +54,18 @@ def cross_smem(Q: int, cols: int, itemsize: int, with_S: bool) -> int:
     return 32 * 8 + itemsize * (cols * Q + Q + 2 * per_buf)
 
 
-def cross_splits(N: int, M: int, Q: int, resident: int) -> int:
-    """N-splits of a cross-covariance launch: its grid (splits x Z tiles)
-    fills one wave of the card's `resident` blocks, no split shorter than
-    one run. A function of the shapes and the card only."""
+def cross_split(N: int, M: int, Q: int, resident: int, waves: int = 1) -> Split:
+    """A cross-covariance launch's `Split`: its grid (splits x Z tiles)
+    fills `waves` waves of the card's `resident` blocks, no split shorter
+    than one run."""
     tiles = -(-M // cross_cols(M, Q))
-    return max(1, min(resident // tiles, -(-N // cross_run(Q))))
+    return Split(waves * resident // tiles, -(-N // cross_run(Q)))
+
+
+def cross_splits(N: int, M: int, Q: int, resident: int, waves: int = 1) -> int:
+    """N-splits of a cross-covariance launch (`cross_split`). A function of
+    the shapes, the card and the wave count only."""
+    return cross_split(N, M, Q, resident, waves).count
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,13 +89,14 @@ def cross_occupancy(lib_name: str, dtype: torch.dtype, Q: int, cols: int,
     return out[0]
 
 
-def cross_launch_splits(lib_name: str, t: torch.Tensor, M: int) -> tuple[int, int]:
+def cross_launch_splits(lib_name: str, t: torch.Tensor, M: int,
+                        waves: int = 1) -> tuple[int, int]:
     """(cols, P) of a cross-covariance launch on t's card, t being mu or X."""
     N, Q = t.shape
     cols = cross_cols(M, Q)
     dev, sms = card_of(t)
     resident = cross_occupancy(lib_name, t.dtype, Q, cols, dev) * sms
-    return cols, cross_splits(N, M, Q, resident)
+    return cols, cross_splits(N, M, Q, resident, waves)
 
 
 def psi1_plain(mu, S, Z, variance, lengthscale):
@@ -97,16 +105,16 @@ def psi1_plain(mu, S, Z, variance, lengthscale):
                                      lengthscale**2)
 
 
-def psi1_cuda(mu, S, Z, variance, lengthscale):
+def psi1_cuda(mu, S, Z, variance, lengthscale, *, waves: int = 1):
     """psi1 (N, M) from the CUDA kernel, on mu's device and stream, in the
-    input dtype. Raises on inputs the kernel does not take and if the launch
-    fails."""
+    input dtype; its grid fills `waves` waves of the card (`cross_splits`).
+    Raises on inputs the kernel does not take and if the launch fails."""
     global LAUNCHES
     check_inputs(mu, S, None, Z, variance, lengthscale, what="psi1_cuda",
-                 per_point=True)
+                 per_point=True, waves=waves)
     N, Q = mu.shape
     M = Z.shape[0]
-    cols, P = cross_launch_splits("psi1_fwd", mu, M)
+    cols, P = cross_launch_splits("psi1_fwd", mu, M, waves)
     l2 = (lengthscale * lengthscale).contiguous()
     v = variance.reshape(1).contiguous()
     out = mu.new_empty(N, M)

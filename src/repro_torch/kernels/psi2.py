@@ -40,16 +40,17 @@ def psi2_plain(mu, S, Z, variance, lengthscale, *, chunk: int = 1024):
     return _psi2_prefactor(Z, variance, lengthscale) * acc
 
 
-def psi2_cuda(mu, S, Z, variance, lengthscale):
+def psi2_cuda(mu, S, Z, variance, lengthscale, *, waves: int = 1):
     """psi2 (M, M) from the CUDA kernel, on mu's device and stream, in the
-    input dtype. Raises on inputs the kernel does not take and if the launch
-    fails."""
+    input dtype; its N-splits fill `waves` waves of the card
+    (`psi2_splits`). Raises on inputs the kernel does not take and if the
+    launch fails."""
     global LAUNCHES
     check_inputs(mu, S, None, Z, variance, lengthscale, what="psi2_cuda",
-                 lib="psi2_fwd")
+                 lib="psi2_fwd", waves=waves)
     N, Q = mu.shape
     M = Z.shape[0]
-    P = psi2_splits(N, M, *card_geometry("psi2_fwd", mu))
+    P = psi2_splits(N, M, *card_geometry("psi2_fwd", mu), waves)
     l2 = (lengthscale * lengthscale).contiguous()
     part, acc = mu.new_empty(P, pair_count(M)), mu.new_empty(M, M)
     launch("psi2_fwd", (mu, S, Z, l2, part, acc), (N, M, Q, P))

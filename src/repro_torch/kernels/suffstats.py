@@ -380,25 +380,47 @@ def evaluated_rows(N: int, P: int, run: int, group: int) -> int:
     return rows
 
 
-def psi2_splits(N: int, M: int, geo: Geometry, sms: int) -> int:
-    """N-splits of a psi2 pair pass: as many as keep every pair block in
-    one wave of the card's resident blocks (blocks_per_sm x sms), so no
-    wave is left with a handful of blocks, and no split shorter than one
-    staged run. A pure function of the shapes and the geometry: the
-    summation order, and so the bits of the result, never change from run
-    to run."""
+class Split(NamedTuple):
+    """One pass's N-split count before its clamp: the splits that `waves`
+    waves of the card's resident blocks ask for, and the most the
+    datapoints allow (none shorter than one run). The launch takes
+    `count`; a tuned wave count is admissible only where `want <= most`."""
+    want: int
+    most: int
+
+    @property
+    def count(self) -> int:
+        return max(1, min(self.want, self.most))
+
+
+def psi2_split(N: int, M: int, geo: Geometry, sms: int, waves: int = 1) -> Split:
+    """The psi2 pair pass's `Split`: as many N-splits as keep every pair
+    block in `waves` waves of the card's resident blocks (blocks_per_sm x
+    sms), and no split shorter than one staged run."""
     blocks = pair_blocks(M, geo.pairs_per_block)
-    resident = geo.blocks_per_sm * sms
-    return max(1, min(resident // blocks, N // geo.run))
+    return Split(waves * geo.blocks_per_sm * sms // blocks, N // geo.run)
 
 
-def splits(N: int, M: int, D: int, geo: Geometry, sms: int) -> tuple[int, int]:
-    """(P2, PY): N-splits of the fused forward's psi2 pair blocks
-    (`psi2_splits`) and of its psiY blocks (about TARGET_BLOCKS blocks, no
-    split shorter than one staging run)."""
+def psi2_splits(N: int, M: int, geo: Geometry, sms: int, waves: int = 1) -> int:
+    """N-splits of a psi2 pair pass (`psi2_split`); at waves=1, one wave,
+    so no wave is left with a handful of blocks. A pure function of the
+    shapes, the geometry and the wave count: the summation order, and so
+    the bits of the result, never change from run to run."""
+    return psi2_split(N, M, geo, sms, waves).count
+
+
+def psiy_split(N: int, M: int, D: int, waves: int = 1) -> Split:
+    """The fused forward's psiY pass: about `waves` x TARGET_BLOCKS blocks,
+    no split shorter than one staging run."""
     y_blocks = -(-M // Y_TILE_M) * -(-D // Y_TILE_D)
-    py = min(-(-TARGET_BLOCKS // y_blocks), -(-N // Y_STAGE))
-    return psi2_splits(N, M, geo, sms), max(1, py)
+    return Split(-(-waves * TARGET_BLOCKS // y_blocks), -(-N // Y_STAGE))
+
+
+def splits(N: int, M: int, D: int, geo: Geometry, sms: int,
+           waves: int = 1) -> tuple[int, int]:
+    """(P2, PY): N-splits of the fused forward's psi2 pair blocks
+    (`psi2_splits`) and of its psiY blocks (`psiy_split`)."""
+    return psi2_splits(N, M, geo, sms, waves), psiy_split(N, M, D, waves).count
 
 
 DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -501,14 +523,16 @@ def kernel_smem(lib: str, Q: int, itemsize: int) -> int:
 
 def check_inputs(mu, S, Y, Z, variance, lengthscale, *, what: str,
                  per_point: bool = False, lib: str | None = None,
-                 **cotangents) -> None:
+                 waves: int = 1, **cotangents) -> None:
     """Raise ValueError on anything the kernel `what` does not take: CUDA
     tensors of one float dtype, matching shapes, Q >= 1 (and, for the
     library `lib`'s ψ2 kernels, no more than their shared memory holds), row
-    indices within 32 bits, contiguous arrays. `Y` is None for the
-    single-statistic kernels and `S` for K_fu (mu is then X); `per_point`
-    kernels (and every reverse kernel) need N >= 1. Cotangents are checked
-    by name: g2 (M, M), gY (M, D), g (N, M)."""
+    indices within 32 bits, contiguous arrays, a positive int wave count.
+    `Y` is None for the single-statistic kernels and `S` for K_fu (mu is
+    then X); `per_point` kernels (and every reverse kernel) need N >= 1.
+    Cotangents are checked by name: g2 (M, M), gY (M, D), g (N, M)."""
+    if isinstance(waves, bool) or not isinstance(waves, int) or waves < 1:
+        raise ValueError(f"{what}: waves must be a positive int, got {waves!r}")
     named = {"mu": mu, "S": S, "Y": Y, "Z": Z, "variance": variance,
              "lengthscale": lengthscale, **cotangents}
     named = {k: t for k, t in named.items() if t is not None}
@@ -558,16 +582,17 @@ def check_inputs(mu, S, Y, Z, variance, lengthscale, *, what: str,
             raise ValueError(f"{name} must be contiguous")
 
 
-def suffstats_cuda(mu, S, Y, Z, variance, lengthscale):
+def suffstats_cuda(mu, S, Y, Z, variance, lengthscale, *, waves: int = 1):
     """(psi2 (M, M), psiY (M, D)) from the CUDA kernel, on mu's device and
-    stream, in the input dtype. Raises on inputs the kernel does not take
-    and if the launch fails."""
+    stream, in the input dtype; its N-splits fill `waves` waves of the
+    card (`splits`). Raises on inputs the kernel does not take and if the
+    launch fails."""
     global LAUNCHES
     check_inputs(mu, S, Y, Z, variance, lengthscale, what="suffstats_cuda",
-                 lib="suffstats_fwd")
+                 lib="suffstats_fwd", waves=waves)
     N, Q = mu.shape
     M, D = Z.shape[0], Y.shape[1]
-    P2, PY = splits(N, M, D, *card_geometry("suffstats_fwd", mu))
+    P2, PY = splits(N, M, D, *card_geometry("suffstats_fwd", mu), waves)
     l2 = (lengthscale * lengthscale).contiguous()
     part2 = mu.new_empty(P2, pair_count(M))
     partY = mu.new_empty(PY, M, D)
@@ -579,13 +604,20 @@ def suffstats_cuda(mu, S, Y, Z, variance, lengthscale):
     return _psi2_prefactor(Z, variance, lengthscale) * acc2, variance * accY
 
 
-def bwd_splits(N: int, M: int, geo: Geometry, sms: int) -> tuple[int, int]:
-    """(P2, PZ): N-splits of the reverse kernel's pair pass (`psi2_splits`
-    with its own geometry) and of its dZ pass (about TARGET_BLOCKS blocks).
-    Pure functions of the shapes and the geometry."""
+def dz_split(N: int, M: int, waves: int = 1) -> Split:
+    """The fused reverse kernel's dZ pass: about `waves` x TARGET_BLOCKS
+    blocks over its inducing-point tiles, no split shorter than one
+    staging run."""
     tiles = -(-M // Z_TILE_M)
-    pz = min(-(-TARGET_BLOCKS // tiles), -(-N // Z_STAGE))
-    return psi2_splits(N, M, geo, sms), max(1, pz)
+    return Split(-(-waves * TARGET_BLOCKS // tiles), -(-N // Z_STAGE))
+
+
+def bwd_splits(N: int, M: int, geo: Geometry, sms: int,
+               waves: int = 1) -> tuple[int, int]:
+    """(P2, PZ): N-splits of the reverse kernel's pair pass (`psi2_splits`
+    with its own geometry) and of its dZ pass (`dz_split`). Pure functions
+    of the shapes, the geometry and the wave count."""
+    return psi2_splits(N, M, geo, sms, waves), dz_split(N, M, waves).count
 
 
 def _folded_g2(Z, variance, lengthscale, g2):
@@ -608,11 +640,13 @@ def _psi2_dZ(Z, l2, G2p, pair_sum):
             - (Z * GP.sum(1)[:, None] - GP @ Z) / (2.0 * l2))
 
 
-def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY):
+def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY, *,
+                       waves: int = 1):
     """Cotangents (dmu, dS, dY, dZ, dvariance, dlengthscale) from the CUDA
     reverse kernel given g2 (M, M) and gY (M, D), on mu's device and
-    stream, in the input dtype. Raises on inputs the kernel does not take
-    and if the launch fails.
+    stream, in the input dtype; its N-splits fill `waves` waves of the card
+    (`bwd_splits`). Raises on inputs the kernel does not take and if the
+    launch fails.
 
     The (m, m')-only prefactor is folded into the psi2 cotangent before the
     launch (eq. (9)); the kernel returns the per-point cotangents, dl and
@@ -622,11 +656,11 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY):
     pair pass's packed partials and its per-(pair block, point) sums."""
     global BWD_LAUNCHES
     check_inputs(mu, S, Y, Z, variance, lengthscale, what="suffstats_bwd_cuda",
-                 lib="suffstats_bwd", g2=g2, gY=gY)
+                 lib="suffstats_bwd", waves=waves, g2=g2, gY=gY)
     N, Q = mu.shape
     M, D = Z.shape[0], Y.shape[1]
     geo, sms = card_geometry("suffstats_bwd", mu)
-    P2, PZ = bwd_splits(N, M, geo, sms)
+    P2, PZ = bwd_splits(N, M, geo, sms, waves)
     NB = -(-N // BWD_THREADS)
     ls = lengthscale.contiguous()
     l2 = (ls * ls).contiguous()
@@ -648,20 +682,21 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY):
     return dmu, dS, dY, dZ, dv, point_sum[:Q]
 
 
-def psi2_bwd_cuda(mu, S, Z, variance, lengthscale, g2):
+def psi2_bwd_cuda(mu, S, Z, variance, lengthscale, g2, *, waves: int = 1):
     """Cotangents (dmu, dS, dZ, dvariance, dlengthscale) of psi2 from the
     CUDA reverse kernel `csrc/psi2_bwd.cu` (replaces `psi2_bwd_pallas`)
-    given g2 (M, M), on mu's device and stream, in the input dtype: the
+    given g2 (M, M), on mu's device and stream, in the input dtype, its
+    N-splits filling `waves` waves of the card (`psi2_splits`): the
     fused reverse kernel's pair and point passes without the psi1 branch,
     the same folded cotangent and dZ epilogue. Raises on inputs the kernel
     does not take and if the launch fails."""
     global PSI2_BWD_LAUNCHES
     check_inputs(mu, S, None, Z, variance, lengthscale, what="psi2_bwd_cuda",
-                 lib="psi2_bwd", g2=g2)
+                 lib="psi2_bwd", waves=waves, g2=g2)
     N, Q = mu.shape
     M = Z.shape[0]
     geo, sms = card_geometry("psi2_bwd", mu)
-    P2 = psi2_splits(N, M, geo, sms)
+    P2 = psi2_splits(N, M, geo, sms, waves)
     NB = -(-N // BWD_THREADS)
     ls = lengthscale.contiguous()
     l2 = (ls * ls).contiguous()
@@ -800,12 +835,17 @@ def psi1_bwd_plan(M: int, Q: int, itemsize: int) -> Psi1BwdPlan:
                      f"inducing points a stage")
 
 
-def psi1_bwd_splits(N: int, R: int, resident: int) -> int:
-    """N-splits (blocks) of csrc/psi1_bwd.cu: one wave of the card's
-    `resident` blocks, no split shorter than one run (and so none empty).
-    A function of the shapes and the card only, so the summation order, and
-    the bits of the result, never change from run to run."""
-    return max(1, min(resident, -(-N // R)))
+def psi1_bwd_split(N: int, R: int, resident: int, waves: int = 1) -> Split:
+    """csrc/psi1_bwd.cu's blocks: `waves` waves of the card's `resident`
+    blocks, no split shorter than one run (and so none empty)."""
+    return Split(waves * resident, -(-N // R))
+
+
+def psi1_bwd_splits(N: int, R: int, resident: int, waves: int = 1) -> int:
+    """N-splits (blocks) of csrc/psi1_bwd.cu (`psi1_bwd_split`). A function
+    of the shapes, the card and the wave count only, so the summation
+    order, and the bits of the result, never change from run to run."""
+    return psi1_bwd_split(N, R, resident, waves).count
 
 
 @functools.lru_cache(maxsize=None)
@@ -830,20 +870,23 @@ def psi1_bwd_occupancy(dtype: torch.dtype, M: int, Q: int, plan: Psi1BwdPlan,
     return out[0]
 
 
-def psi1_bwd_cuda(mu, S, Z, variance, lengthscale, g):
+def psi1_bwd_cuda(mu, S, Z, variance, lengthscale, g, *, waves: int = 1):
     """Cotangents (dmu, dS, dZ, dvariance, dlengthscale) of psi1 from the
     CUDA reverse kernel `csrc/psi1_bwd.cu` (replaces `psi1_bwd_pallas`;
     at S = 0 it is the reverse pass of K_fu) given g (N, M), on mu's device
-    and stream, in the input dtype. Raises on inputs the kernel does not
-    take and if the launch fails. Scratch: the blocks' dZ and dl / dv
+    and stream, in the input dtype, its blocks filling `waves` waves of the
+    card (`psi1_bwd_splits`). Raises on inputs the kernel does not take and
+    if the launch fails. Scratch: the blocks' dZ and dl / dv
     totals in double, (P, M, Q) and (P, Q + 1)."""
     global PSI1_BWD_LAUNCHES
-    check_inputs(mu, S, None, Z, variance, lengthscale, what="psi1_bwd_cuda", g=g)
+    check_inputs(mu, S, None, Z, variance, lengthscale, what="psi1_bwd_cuda",
+                 waves=waves, g=g)
     N, Q = mu.shape
     M = Z.shape[0]
     plan = psi1_bwd_plan(M, Q, mu.element_size())
     dev, sms = card_of(mu)
-    P = psi1_bwd_splits(N, plan.run, psi1_bwd_occupancy(mu.dtype, M, Q, plan, dev) * sms)
+    P = psi1_bwd_splits(N, plan.run, psi1_bwd_occupancy(mu.dtype, M, Q, plan, dev) * sms,
+                        waves)
     ls = lengthscale.contiguous()
     l2 = (ls * ls).contiguous()
     v = variance.reshape(1).contiguous()
@@ -859,12 +902,12 @@ def psi1_bwd_cuda(mu, S, Z, variance, lengthscale, g):
     return dmu, dS, dZ, dv, point_sum[:Q]
 
 
-def kfu_bwd_cuda(X, Z, variance, lengthscale, g):
+def kfu_bwd_cuda(X, Z, variance, lengthscale, g, *, waves: int = 1):
     """Cotangents (dX, dZ, dvariance, dlengthscale) of K_fu given g (N, M)
     from the psi1 reverse kernel at S = 0 (port of `kfu_bwd_pallas`, which
     wraps `psi1_bwd_pallas` the same way): one launch of
-    `csrc/psi1_bwd.cu`, counted by `PSI1_BWD_LAUNCHES`. Raises where
-    `psi1_bwd_cuda` does."""
+    `csrc/psi1_bwd.cu` at `waves`, counted by `PSI1_BWD_LAUNCHES`. Raises
+    where `psi1_bwd_cuda` does."""
     dX, _, dZ, dv, dl = psi1_bwd_cuda(X, torch.zeros_like(X), Z, variance,
-                                      lengthscale, g)
+                                      lengthscale, g, waves=waves)
     return dX, dZ, dv, dl

@@ -23,7 +23,7 @@ the stored terminal state); `downdate` and `refit` refuse it.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -45,7 +45,7 @@ def _as_2d(Y: torch.Tensor) -> torch.Tensor:
 
 
 def batch_stats(kernel: Kernel, state: PosteriorState, batch: Batch, *,
-                backend: str = "jnp", chunk: Optional[int] = None,
+                backend: str = "jnp", chunk: Union[int, str, None] = None,
                 bwd_backend: str = "auto") -> SuffStats:
     """Statistics of an incremental batch under the state's
     hyperparameters, through the standard engine (gp.stats.suff_stats)."""
@@ -59,7 +59,7 @@ def _params(state: PosteriorState) -> dict:
 
 def update(kernel: Kernel, state: PosteriorState, X_new: torch.Tensor,
            Y_new: torch.Tensor, *, backend: str = "jnp",
-           chunk: Optional[int] = None, bwd_backend: str = "auto",
+           chunk: Union[int, str, None] = None, bwd_backend: str = "auto",
            jitter: float = svgp.DEFAULT_JITTER) -> PosteriorState:
     """Absorb new observations: O(B M^2) statistics + O(M^3) refold. Equal
     (to roundoff) to rebuilding the statistics from scratch on the
@@ -110,7 +110,7 @@ def refold(kernel: Kernel, state: PosteriorState, stats: SuffStats, *,
 
 def downdate(kernel: Kernel, state: PosteriorState, X_old: torch.Tensor,
              Y_old: torch.Tensor, *, backend: str = "jnp",
-             chunk: Optional[int] = None,
+             chunk: Union[int, str, None] = None,
              jitter: float = svgp.DEFAULT_JITTER) -> PosteriorState:
     """Remove previously absorbed observations by subtracting their exact
     statistics, then refold behind the condition guard."""

@@ -24,28 +24,44 @@ Counterpart of `repro.serve.server`, on one device (the CUDA device unless
   registers like any model: `predict` forecasts marginals at new
   timestamps (diag=False raises per request), `update` filters new
   observations forward; `downdate` and `refit` raise.
+* **Durability.** `store=` names a `repro_torch.serve.StateStore` (or a
+  directory); `save_all()` persists every dirty state and
+  `GPServer.load(store)` rebuilds a server after a restart that serves
+  bit-identical predictions: states reload onto the server's device in
+  their stored dtypes, so the same ops run on the same bits.
+* **Memory budget.** `budget_bytes=` (or the REPRO_TORCH_SERVE_BUDGET_BYTES
+  environment variable) bounds the bytes of resident states with a
+  byte-accounted LRU: cold states are evicted to the store (persisted
+  first if dirty) and lazily reloaded on their next predict/update. The
+  model being touched is never its own victim, so a single state larger
+  than the budget still serves; everything else stays under budget.
 
-Not ported yet: persistence (`store=`, `save_all`, `load`) and the byte
-budget (`budget_bytes=`) — each raises `NotImplementedError` naming the
-slice it comes with.
+Lock order: `_budget_lock` -> `entry.lock` -> `_registry_lock` (a leaf:
+nothing is acquired under it). A path that takes `_budget_lock` while
+holding an entry lock would deadlock against a concurrent reload, so
+`_mutate` reloads an evicted state before it takes the entry lock.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import Future
-from typing import Dict, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch import device as _device
 from repro_torch.gp.kernels import Kernel
-from repro_torch.serve import online
+from repro_torch.serve import online, persist
+from repro_torch.serve.persist import StateStore
 from repro_torch.serve.state import PosteriorState, _predict_closure
 from repro_torch.temporal.model import TemporalState, forecast_closure
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+BUDGET_ENV = "REPRO_TORCH_SERVE_BUDGET_BYTES"
 
 
 class ServerClosedError(RuntimeError):
@@ -66,18 +82,30 @@ def _no_full(state, Xt):
 
 
 class _Entry:
-    """A registered model: kernel, state (swapped atomically under `lock`)
-    and its predict closures keyed by diag: a posterior state's give the
-    marginal or the full covariance, a temporal state's forecast
-    marginals only."""
+    """A registered model: kernel, state (swapped atomically under `lock`,
+    or None while evicted to the store) and its predict closures keyed by
+    diag: a posterior state's give the marginal or the full covariance, a
+    temporal state's forecast marginals only.
 
-    __slots__ = ("kernel", "state", "lock", "fns")
+    `kind` ("posterior" or "temporal") comes from the state, or from the
+    manifest's `state_kind` for a cold registration (state still on disk).
+    `nbytes` is the state's resident cost — constant per registration,
+    since online updates swap same-shaped tensors. `dirty` marks a state
+    the store has not seen (fresh registration, or mutated since the last
+    save); eviction persists a dirty state before dropping it."""
 
-    def __init__(self, kernel: Kernel, state):
+    __slots__ = ("kernel", "state", "lock", "fns", "nbytes", "dirty", "kind")
+
+    def __init__(self, kernel: Kernel, state=None, *,
+                 nbytes: Optional[int] = None, dirty: bool = True,
+                 kind: Optional[str] = None):
         self.kernel = kernel
         self.state = state
+        self.nbytes = int(state.nbytes if nbytes is None else nbytes)
+        self.dirty = dirty
         self.lock = threading.Lock()
-        if isinstance(state, TemporalState):
+        self.kind = persist.state_kind(state) if kind is None else kind
+        if self.kind == "temporal":
             self.fns = {True: forecast_closure(kernel), False: _no_full}
         else:
             self.fns = {True: _predict_closure(kernel, True),
@@ -103,34 +131,52 @@ class _Request:
 
 
 class GPServer:
-    """Register `PosteriorState`s by name; serve batched low-latency
-    predictions; fold new data in online.
+    """Register `PosteriorState`s (and `TemporalState`s) by name; serve
+    batched low-latency predictions; fold new data in online; optionally
+    persist and budget.
 
     Args:
       buckets: allowed padded batch sizes, ascending and unique.
       use_buckets: `False` disables padding (every request runs at its own
         shape) — for latency comparisons, not production use.
+      store: a `StateStore` (or directory path) for persistence: the
+        `save_all()` target, the eviction spill space and the lazy-reload
+        source. Required when `budget_bytes` is set.
+      budget_bytes: byte cap on resident states (LRU eviction past it).
+        `None` reads the REPRO_TORCH_SERVE_BUDGET_BYTES environment
+        variable; unset means unbounded.
       max_pending: admission bound on submit-queue depth.
       default_timeout: seconds a submitted request may wait in the queue
         before expiring with `TimeoutError` (per-call `timeout=` overrides).
-      device: where states must live and requests are moved to; "cuda" by
-        default, and raises on a host without a CUDA device.
+      device: where states must live (and reload to) and requests are
+        moved to; "cuda" by default, and raises on a host without a CUDA
+        device.
     """
 
     def __init__(self, *, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 use_buckets: bool = True, store=None,
+                 use_buckets: bool = True,
+                 store: Union[StateStore, str, Path, None] = None,
                  budget_bytes: Optional[int] = None,
                  max_pending: Optional[int] = None,
                  default_timeout: Optional[float] = None,
                  device: str | torch.device = _device.DEFAULT_DEVICE):
-        if store is not None or budget_bytes is not None:
-            raise NotImplementedError(
-                "store= and budget_bytes= (persistence and the byte-budgeted "
-                "LRU) come with a later slice of the port")
         if not buckets or list(buckets) != sorted(set(int(b) for b in buckets)):
             raise ValueError(f"buckets must be ascending and unique, got {buckets!r}")
         self.buckets = tuple(int(b) for b in buckets)
         self.use_buckets = bool(use_buckets)
+        if isinstance(store, (str, Path)):
+            store = StateStore(store)
+        self.store = store
+        if budget_bytes is None and os.environ.get(BUDGET_ENV):
+            budget_bytes = int(os.environ[BUDGET_ENV])
+        if budget_bytes is not None:
+            if budget_bytes <= 0:
+                raise ValueError(f"budget_bytes must be positive, got {budget_bytes}")
+            if store is None:
+                raise ValueError(
+                    "budget_bytes needs a store= to evict cold states into "
+                    "(pass a repro_torch.serve.StateStore or a directory path)")
+        self.budget_bytes = budget_bytes
         if max_pending is not None and max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         self.max_pending = max_pending
@@ -138,6 +184,17 @@ class GPServer:
         self.device = _device.resolve(device)
         self._models: Dict[str, _Entry] = {}
         self._registry_lock = threading.Lock()
+        # residency: _lru maps name -> entry for RESIDENT states only, least
+        # recently used first; _resident_bytes is their byte sum. Both are
+        # guarded by _registry_lock (a leaf lock). _budget_lock serializes
+        # residency transitions (evict / lazy reload) and orders BEFORE
+        # entry locks.
+        self._lru: "OrderedDict[str, _Entry]" = OrderedDict()
+        self._resident_bytes = 0
+        self._budget_lock = threading.Lock()
+        self._evictions = 0
+        self._lazy_loads = 0
+        self._peak_resident = 0
         self._rejected = 0
         self._expired = 0
         # micro-batching queue (worker started lazily on first submit)
@@ -156,7 +213,9 @@ class GPServer:
         `export_state()` (`SparseGPRegression`, `BayesianGPLVM`,
         `TemporalGPRegression`) or an explicit (kernel, state) pair, the
         state a `PosteriorState` or a `TemporalState`. The state's tensors
-        must live on the server's device."""
+        must live on the server's device; the server keeps its own copy
+        in the store's layout (`persist.as_stored`), so an evicted and
+        reloaded state answers bit for bit as before."""
         if model is not None:
             if kernel is not None or state is not None:
                 raise ValueError("pass either a fitted model or kernel=+state=, not both")
@@ -175,12 +234,39 @@ class GPServer:
                 raise ServerClosedError(
                     "GPServer is closed: register() after close() would pair "
                     "a model with a dead worker")
-        entry = _Entry(kernel, state)
-        with self._registry_lock:
-            self._models[name] = entry
+        self._insert(name, _Entry(kernel, persist.as_stored(state)))
+
+    def _register_cold(self, name: str) -> None:
+        """Register a persisted model WITHOUT loading its state: the kernel
+        comes from the stored spec, the byte charge from the manifest, and
+        the state stays on disk until the first predict/update touches it.
+        This is how `load()` restarts within budget regardless of how many
+        models the store holds."""
+        kernel, manifest = self.store.load_meta(name)
+        kind = (manifest.get("extra") or {}).get("state_kind", "posterior")
+        self._insert(name, _Entry(kernel, None, nbytes=self.store.nbytes(name),
+                                  dirty=False, kind=kind))
+
+    def _insert(self, name: str, entry: _Entry) -> None:
+        with self._budget_lock:
+            if entry.state is not None:
+                # make room FIRST: resident bytes never overshoot the
+                # budget, not even transiently
+                self._make_room(entry.nbytes, exclude=name)
+            with self._registry_lock:
+                old = self._models.pop(name, None)
+                if old is not None and self._lru.pop(name, None) is not None:
+                    self._resident_bytes -= old.nbytes
+                self._models[name] = entry
+                if entry.state is not None:
+                    self._lru[name] = entry
+                    self._resident_bytes += entry.nbytes
+                    self._peak_resident = max(self._peak_resident,
+                                              self._resident_bytes)
 
     def state(self, name: str):
-        return self._entry(name).state
+        """The named model's current state (reloaded if evicted)."""
+        return self._resident_state(name, self._entry(name))
 
     def models(self) -> Tuple[str, ...]:
         with self._registry_lock:
@@ -194,11 +280,149 @@ class GPServer:
             raise KeyError(f"no model {name!r} registered; have {self.models()}")
         return entry
 
-    def metrics(self) -> Dict[str, int]:
-        """Admission counters: registered models, rejections, expiries."""
+    # ------------------------------------------------------------------ #
+    # residency: byte-accounted LRU over the store
+    # ------------------------------------------------------------------ #
+
+    def _touch(self, name: str, entry: _Entry) -> None:
+        """Refresh the LRU position of a resident entry."""
         with self._registry_lock:
-            return {"registered": len(self._models),
-                    "rejected": self._rejected, "expired": self._expired}
+            if entry.state is not None and self._models.get(name) is entry:
+                self._lru[name] = entry
+                self._lru.move_to_end(name)
+
+    def _load_locked(self, name: str, entry: _Entry):
+        """Reload an evicted state from the store onto the server's device
+        and account it resident. Caller holds _budget_lock AND entry.lock;
+        takes only the leaf registry lock inside."""
+        _, state = self.store.load(name, device=self.device)
+        entry.state = state
+        entry.dirty = False  # the disk copy is exactly what was just loaded
+        with self._registry_lock:
+            self._lazy_loads += 1
+            self._resident_bytes += entry.nbytes
+            self._peak_resident = max(self._peak_resident, self._resident_bytes)
+            self._lru[name] = entry
+            self._lru.move_to_end(name)
+        return state
+
+    def _resident_state(self, name: str, entry: _Entry):
+        """The entry's state, lazily reloaded if evicted. Room is made
+        BEFORE the reload, so resident bytes never overshoot the budget.
+        Lock order on the slow path: _budget_lock -> entry.lock ->
+        _registry_lock."""
+        state = entry.state  # one atomic read: the hot path takes no lock
+        if state is None:
+            with self._budget_lock:
+                if entry.state is None:
+                    self._make_room(entry.nbytes, exclude=name)
+                with entry.lock:
+                    state = entry.state
+                    if state is None:
+                        state = self._load_locked(name, entry)
+        self._touch(name, entry)
+        return state
+
+    def _make_room(self, incoming: int = 0, exclude: Optional[str] = None) -> None:
+        """Evict least-recently-used states until `incoming` more resident
+        bytes fit the budget. Caller holds _budget_lock. `exclude` protects
+        the entry being served right now from becoming its own victim — if
+        it alone exceeds the budget it still serves rather than thrashing."""
+        if self.budget_bytes is None:
+            return
+        while True:
+            with self._registry_lock:
+                if self._resident_bytes + incoming <= self.budget_bytes:
+                    return
+                victim = next((n for n in self._lru if n != exclude), None)
+            if victim is None:
+                return
+            self._evict(victim)
+
+    def _evict(self, name: str) -> None:
+        """Persist (if dirty) and drop one resident state. Caller holds
+        _budget_lock; the victim's entry lock excludes a concurrent update or
+        reload, and the accounting happens inside it so a reload racing
+        right behind the eviction can never double-count."""
+        with self._registry_lock:
+            entry = self._models.get(name)
+        if entry is None:
+            return
+        with entry.lock:
+            state = entry.state
+            if state is None:
+                return
+            if entry.dirty:
+                self.store.save(name, entry.kernel, state)
+                entry.dirty = False
+            entry.state = None
+            with self._registry_lock:
+                if self._lru.pop(name, None) is not None:
+                    self._resident_bytes -= entry.nbytes
+                self._evictions += 1
+
+    def metrics(self) -> Dict[str, Optional[int]]:
+        """Residency and admission counters, snapshotted: registered /
+        resident model counts, resident / peak-resident / budget bytes,
+        evictions, lazy reloads, admission rejections, queue expiries."""
+        with self._registry_lock:
+            return {
+                "registered": len(self._models),
+                "resident_models": len(self._lru),
+                "resident_bytes": self._resident_bytes,
+                "peak_resident_bytes": self._peak_resident,
+                "budget_bytes": self.budget_bytes,
+                "evictions": self._evictions,
+                "lazy_loads": self._lazy_loads,
+                "rejected": self._rejected,
+                "expired": self._expired,
+            }
+
+    # ------------------------------------------------------------------ #
+    # persistence: save_all / load
+    # ------------------------------------------------------------------ #
+
+    def _require_store(self) -> StateStore:
+        if self.store is None:
+            raise ValueError(
+                "GPServer has no store= — construct it with a "
+                "repro_torch.serve.StateStore (or directory path) to persist")
+        return self.store
+
+    def save_all(self) -> Tuple[str, ...]:
+        """Persist every registered model whose state the store has not
+        seen; returns the names written. Evicted entries are clean by
+        construction (eviction persists dirty state first), so a
+        save_all() + process death loses nothing."""
+        store = self._require_store()
+        saved = []
+        for name in self.models():
+            with self._registry_lock:
+                entry = self._models.get(name)
+            if entry is None:
+                continue
+            with entry.lock:
+                if entry.state is not None and entry.dirty:
+                    store.save(name, entry.kernel, entry.state)
+                    entry.dirty = False
+                    saved.append(name)
+        return tuple(saved)
+
+    @classmethod
+    def load(cls, store: Union[StateStore, str, Path], **kwargs) -> "GPServer":
+        """Rebuild a server from a checkpoint store after a restart.
+
+        Every persisted model is registered COLD — kernel and predict
+        closures live, state still on disk — so the restarted process
+        starts within any budget however many models the store holds, and
+        pays one lazy reload per model on first use. States reload onto the
+        server's device (`device=`, the CUDA device by default) in their
+        stored dtypes, so predictions after the reload are bit-identical to
+        the pre-restart server's on the same device."""
+        srv = cls(store=store, **kwargs)
+        for name in srv.store.names():
+            srv._register_cold(name)
+        return srv
 
     # ------------------------------------------------------------------ #
     # bucketed predict
@@ -217,11 +441,13 @@ class GPServer:
                 f"requests must be non-empty (B, Q) batches, got shape {tuple(X.shape)}")
         return X
 
-    def _predict_padded(self, entry: _Entry, X: torch.Tensor, diag: bool):
+    def _predict_padded(self, name: str, entry: _Entry, X: torch.Tensor,
+                        diag: bool):
         """One device call at a bucket shape; returns unpadded (mean, var).
-        The state is read once, so the slices of an oversized request all
-        use the same posterior even if update() swaps it meanwhile."""
-        state = entry.state
+        The state is read once (lazily reloaded if evicted), so the slices
+        of an oversized request all use the same posterior even if update()
+        swaps it meanwhile."""
+        state = self._resident_state(name, entry)
         fn = entry.fns[diag]
         X = X.to(_dtype_device(state)[0])
         if not self.use_buckets:
@@ -254,8 +480,8 @@ class GPServer:
     def predict(self, name: str, X, *, diag: bool = True):
         """Synchronous predict through the buckets: mean (B, D) and marginal
         variance (B,) (or the (B, B) covariance with diag=False)."""
-        return self._predict_padded(self._entry(name), self._check_batch(X),
-                                    diag)
+        return self._predict_padded(name, self._entry(name),
+                                    self._check_batch(X), diag)
 
     # ------------------------------------------------------------------ #
     # micro-batching submit
@@ -331,10 +557,10 @@ class GPServer:
                     if not diag or len(reqs) == 1:
                         for r in reqs:
                             r.future.set_result(
-                                self._predict_padded(entry, r.X, diag))
+                                self._predict_padded(name, entry, r.X, diag))
                         continue
                     mean, var = self._predict_padded(
-                        entry, torch.cat([r.X for r in reqs]), True)
+                        name, entry, torch.cat([r.X for r in reqs]), True)
                     off = 0
                     for r in reqs:
                         b = r.X.shape[0]
@@ -374,46 +600,60 @@ class GPServer:
         return torch.as_tensor(A, device=self.device,
                                dtype=_dtype_device(state)[0])
 
+    def _mutate(self, name: str, fn):
+        """Shared update/downdate/refit skeleton: swap the state atomically
+        under the entry lock, reloading an evicted state first through the
+        budgeted `_resident_state` path (never while holding the entry
+        lock, which would invert the _budget_lock -> entry.lock order). The
+        retry handles an eviction that lands between the reload and the
+        lock; the swap keeps nbytes constant, so no room-making is needed
+        afterwards. The result is dirty until a save or eviction persists
+        it."""
+        entry = self._entry(name)
+        while True:
+            if entry.state is None:
+                self._resident_state(name, entry)
+            with entry.lock:
+                state = entry.state
+                if state is None:
+                    continue  # evicted under our feet — reload and retry
+                result = fn(entry, state)
+                entry.dirty = True
+                self._touch(name, entry)
+                return result
+
     def update(self, name: str, X_new, Y_new, *, backend: str = "jnp",
-               chunk: Optional[int] = None, bwd_backend: str = "auto") -> None:
+               chunk: Union[int, str, None] = None,
+               bwd_backend: str = "auto") -> None:
         """Fold new observations into the named state (monoid combine +
         O(M^3) refold; for a temporal state, the sequential filter forward)
-        and swap it in atomically."""
-        entry = self._entry(name)
-        with entry.lock:
-            state = entry.state
+        and swap it in atomically. Reloads an evicted state first.
+        `chunk` streams the new batch's statistics ("auto": the tuner)."""
+        def fold(entry, state):
             entry.state = online.update(
                 entry.kernel, state, self._as_data(X_new, state),
                 self._as_data(Y_new, state), backend=backend, chunk=chunk,
                 bwd_backend=bwd_backend)
 
+        self._mutate(name, fold)
+
     def downdate(self, name: str, X_old, Y_old, *, backend: str = "jnp",
-                 chunk: Optional[int] = None) -> None:
+                 chunk: Union[int, str, None] = None) -> None:
         """Subtract previously absorbed observations (guarded refold)."""
-        entry = self._entry(name)
-        with entry.lock:
-            state = entry.state
+        def fold(entry, state):
             entry.state = online.downdate(
                 entry.kernel, state, self._as_data(X_old, state),
                 self._as_data(Y_old, state), backend=backend, chunk=chunk)
+
+        self._mutate(name, fold)
 
     def refit(self, name: str, *, steps: int = 50, lr: float = 5e-2) -> list:
         """Noise-precision touch-up from the cached statistics (see
         `repro_torch.serve.online.refit`); swaps the refolded state in and
         returns the loss history."""
-        entry = self._entry(name)
-        with entry.lock:
-            entry.state, history = online.refit(entry.kernel, entry.state,
+        def fold(entry, state):
+            entry.state, history = online.refit(entry.kernel, state,
                                                 steps=steps, lr=lr)
-        return history
+            return history
 
-    def save_all(self):
-        raise NotImplementedError(
-            "persistence (StateStore, save_all, load) comes with a later "
-            "slice of the port")
-
-    @classmethod
-    def load(cls, store, **kwargs) -> "GPServer":
-        raise NotImplementedError(
-            "persistence (StateStore, save_all, load) comes with a later "
-            "slice of the port")
+        return self._mutate(name, fold)

@@ -2,8 +2,11 @@
 (the fused forward and reverse, psi1 and psi2 and their reverses, K_fu and
 its reverse through the psi1 reverse kernel) against its plain PyTorch
 version on the card, and a Product of RBFs through the fused and pallas
-statistics (one launch of each kernel per forward and backward). Imports no JAX, so it runs
-on a machine that has only PyTorch:
+statistics (one launch of each kernel per forward and backward); each
+kernel at every wave count the tuner may pick, `ops` launching a pinned
+`block=` / `bwd_block=`, the tuner on the card, and a budgeted `GPServer`
+that evicts and reloads. Imports no JAX, so it runs on a machine that has
+only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -40,6 +43,20 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def untuned(tmp_path, monkeypatch):
+    """Every launch at the untuned geometry (one wave) unless a test turns
+    the tuner on: tuning off, over a cache file of the test's own."""
+    from repro_torch import tune
+    from repro_torch.tune import autotune
+
+    monkeypatch.setenv(tune.CACHE_ENV, str(tmp_path / "tune.json"))
+    monkeypatch.setattr(autotune, "_ENABLED_OVERRIDE", False)
+    tune.clear_memo()
+    yield
+    tune.clear_memo()
 
 
 def _inputs(N, M, Q, D, pos_S, seed=0):
@@ -599,3 +616,172 @@ def test_product_of_rbfs_launches_the_kernels(card, backend):
         assert _rel(g, w) <= TOL[torch.float64]
     for g, w in zip(got, run(card, product=False)):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# tuned launch geometry, the tuner and the budgeted server on the card
+# ---------------------------------------------------------------------------
+
+TUNE_KERNELS = ("suffstats_pallas", "suffstats_bwd_pallas", "psi2_pallas",
+                "psi2_bwd_pallas", "psi1_pallas", "psi1_bwd_pallas", "kfu_pallas")
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32), ids=str)
+@pytest.mark.parametrize("name", TUNE_KERNELS)
+@pytest.mark.parametrize("mq", [(100, 1), (256, 4)], ids=str)
+def test_kernels_match_plain_at_every_wave_count(card, name, mq, dtype):
+    """At the measuring problem of (M, Q) every wave count is admissible
+    and launches its own grid; each is held to the float64 plain version
+    and is bitwise reproducible."""
+    from repro_torch.tune import autotune, search
+
+    M, Q = mq
+    cardinfo = search.Card(torch.cuda.current_device())
+    prob = search.measure_problem(name, M, Q, dtype, cardinfo)
+    cands = search.candidate_blocks(name, problem=prob, dtype=dtype, card=cardinfo)
+    assert cands == list(search.WAVE_CANDIDATES)
+    args64 = autotune.kernel_inputs(name, prob, torch.float64, card)
+    want = _as_tuple(search.KERNELS[name].plain(*args64))
+    args = tuple(a.to(dtype) for a in args64)
+    for w in cands:
+        got = _as_tuple(autotune.run_kernel(name, args, w))
+        again = _as_tuple(autotune.run_kernel(name, args, w))
+        torch.cuda.synchronize()
+        for g, a, p in zip(got, again, want):
+            assert torch.equal(g, a)
+            assert _rel(g, p.cpu()) <= TOL[dtype]
+
+
+def _recording(monkeypatch):
+    """Record the ints of every launch (the split counts among them)."""
+    from repro_torch.kernels import kfu as kf_mod
+    from repro_torch.kernels import psi1 as p1_mod
+    from repro_torch.kernels import psi2 as p2_mod
+
+    seen = []
+    real = ss.launch
+
+    def launch(lib, tensors, ints):
+        seen.append((lib, tuple(ints)))
+        return real(lib, tensors, ints)
+
+    for mod in (ss, p1_mod, p2_mod, kf_mod):
+        monkeypatch.setattr(mod, "launch", launch)
+    return seen
+
+
+# where each library's launch carries its split counts
+_SPLIT_INTS = {"suffstats_fwd": (4, 5), "suffstats_bwd": (4, 5), "psi2_fwd": (3,),
+               "psi2_bwd": (3,), "psi1_fwd": (4,), "kfu_fwd": (4,), "psi1_bwd": (3,)}
+
+
+@pytest.mark.parametrize("waves", [(1, 1), (2, 4), (4, 2)], ids=str)
+def test_ops_launch_a_pinned_block(card, monkeypatch, waves):
+    """ops.suffstats / kfu / psi1 / psi2 with block= and bwd_block= launch
+    exactly the split counts `tune.search.launch_plan` gives those waves."""
+    from repro_torch.tune import search
+
+    block, bwd_block = waves
+    N, M, Q, D = 200_003, 100, 1, 3
+    mu, S, Y, Z, v, ls = (a.to(card).requires_grad_() for a in _inputs(N, M, Q, D, True))
+    seen = _recording(monkeypatch)
+    outs = [ops.suffstats(mu, S, Y, Z, v, ls, block=block, bwd_block=bwd_block),
+            ops.psi1(mu, S, Z, v, ls, block=block, bwd_block=bwd_block),
+            ops.psi2(mu, S, Z, v, ls, block=block, bwd_block=bwd_block),
+            ops.kfu(mu, Z, v, ls, block=block, bwd_block=bwd_block)]
+    loss = sum(o.sum() for out in outs for o in _as_tuple(out))
+    torch.autograd.grad(loss, (mu, S, Z, v, ls))
+    torch.cuda.synchronize()
+    cardinfo = search.Card(card.index or 0)
+    prob = search.Problem(N, M, Q, D)
+    name_of = {k.lib: name for name, k in search.KERNELS.items()}
+    assert sorted(lib for lib, _ in seen) == sorted(
+        ["suffstats_fwd", "suffstats_bwd", "psi1_fwd", "psi1_bwd", "psi2_fwd",
+         "psi2_bwd", "kfu_fwd", "psi1_bwd"])
+    for lib, ints in seen:
+        w = block if lib.endswith("fwd") else bwd_block
+        plan = search.launch_plan(name_of[lib], w, prob, torch.float64, cardinfo)
+        assert tuple(ints[i] for i in _SPLIT_INTS[lib]) == plan.counts, lib
+
+
+def test_ops_launch_the_tuners_winner(card, monkeypatch):
+    """With a winner in the cache (and tuning off) an unpinned op launches
+    it; with nothing cached, one wave."""
+    from repro_torch import tune
+    from repro_torch.tune import search
+
+    N, M, Q = 100_003, 100, 1
+    mu, S, Z, v, ls = (a.to(card) for a in _single((N, M, Q, 1, True))[:5])
+    seen = _recording(monkeypatch)
+    tune.store(tune.make_key("blocks", "psi2_pallas", torch.float64, M, Q, device=card),
+               {"winner": 4})
+    tune.clear_memo()
+    ops.psi2(mu, S, Z, v, ls)
+    ops.psi1(mu, S, Z, v, ls)
+    cardinfo = search.Card(card.index or 0)
+    prob = search.Problem(N, M, Q)
+    assert seen[0][1][3] == search.launch_plan("psi2_pallas", 4, prob, torch.float64,
+                                               cardinfo).counts[0]
+    assert seen[1][1][4] == search.launch_plan("psi1_pallas", 1, prob, torch.float64,
+                                               cardinfo).counts[0]
+
+
+def test_tuner_measures_on_the_card_once(card, monkeypatch):
+    """Tuning on: the first resolution times every candidate on the card,
+    the second (memo cleared) reads the file with no timing run."""
+    from repro_torch import tune
+    from repro_torch.tune import autotune
+
+    monkeypatch.setattr(autotune, "_ENABLED_OVERRIDE", True)
+    runs = tune.timing_runs()
+    win = tune.best_blocks("kfu_pallas", dtype=torch.float32, m=100, q=1, device=card)
+    assert win in tune.WAVE_CANDIDATES and tune.timing_runs() == runs + 3
+    tune.clear_memo()
+    assert tune.best_blocks("kfu_pallas", dtype=torch.float32, m=100, q=1,
+                            device=card) == win
+    assert tune.timing_runs() == runs + 3
+    chunk = tune.best_chunk(n=50_000, m=100, q=1, d=3, dtype=torch.float32,
+                            backend="fused", device=card)
+    n_meas = min(50_000, 4 * max(tune.CHUNK_CANDIDATES))  # the measuring N
+    assert chunk in tune.candidate_chunks(n_meas)
+
+
+def test_budgeted_server_evicts_reloads_and_answers_the_same(card, tmp_path):
+    from repro_torch import convert
+    from repro_torch.gp import ExactBatch, get, suff_stats
+    from repro_torch.serve import GPServer, build_state
+
+    rng = np.random.default_rng(5)
+    kernel = get("rbf")(1)
+    states = {}
+    for i in range(4):
+        X = rng.uniform(-3, 3, (20_000, 1))
+        Y = np.sin(2 * X + 0.3 * i) + 0.1 * rng.normal(size=X.shape)
+        params = convert.params_from_numpy(
+            {"kern": {"log_variance": 0.0, "log_lengthscale": [np.log(0.3)]},
+             "Z": np.linspace(-3, 3, 50)[:, None], "log_beta": np.log(100.0)},
+            device=card, dtype=torch.float64)
+        X, Y = torch.as_tensor(X, device=card), torch.as_tensor(Y, device=card)
+        stats = suff_stats(kernel, params["kern"], ExactBatch(X, Y, params["Z"]),
+                           backend="fused")
+        states[f"m{i}"] = build_state(kernel, params, stats)
+    Xt = torch.linspace(-3, 3, 64, device=card, dtype=torch.float64)[:, None]
+    budget = 2 * states["m0"].nbytes
+    with GPServer(store=tmp_path, budget_bytes=budget, device=card) as srv:
+        first = {}
+        for name, st in states.items():
+            srv.register(name, kernel=kernel, state=st)
+            first[name] = srv.predict(name, Xt)
+        for name in states:
+            again = srv.predict(name, Xt)
+            assert all(torch.equal(a, b) for a, b in zip(again, first[name]))
+            assert srv.state(name).Z.device.type == "cuda"
+        m = srv.metrics()
+        assert m["evictions"] > 0 and m["lazy_loads"] > 0
+        assert m["peak_resident_bytes"] <= budget
+        srv.save_all()
+    restarted = GPServer.load(tmp_path, device=card)
+    for name in states:
+        again = restarted.predict(name, Xt)
+        assert all(torch.equal(a, b) for a, b in zip(again, first[name]))
+    restarted.close()

@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 24  # every module of the three slices was imported
+    assert int(count) >= 31  # every module of the port, checkpoint/ and tune/ too
     assert leaked == "[]", leaked
 
 

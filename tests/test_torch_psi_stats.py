@@ -117,7 +117,9 @@ def test_streaming_suff_stats_tail_chunk_matches_jax(kind, chunk):
     _assert_stats(tstats.suff_stats(kern_t, _torch(k), tb), want)
 
 
-def test_unported_backends_and_knobs_raise():
+def test_unported_backends_and_knobs_raise(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.delenv("REPRO_TORCH_TUNE", raising=False)
     a, k = _data()
     X, Y, Z = (torch.as_tensor(a[n]) for n in "XYZ")
     # backend="pallas" is ported (the K_fu op): it now equals the plain path
@@ -127,9 +129,17 @@ def test_unported_backends_and_knobs_raise():
         assert _rel(g, w) <= RTOL, name
     with pytest.raises(ValueError, match="backend"):
         tps.exact_stats_rbf(_torch(k), X, Y, Z, backend="xla")
-    with pytest.raises(NotImplementedError, match="autotuner"):
+    # chunk="auto" is ported: untuned, it is the default chunk; any other
+    # string is refused
+    auto = tstats.suff_stats(tkernels.get("rbf")(2), _torch(k),
+                             tstats.ExactBatch(X, Y, Z), chunk="auto")
+    fixed = tstats.suff_stats(tkernels.get("rbf")(2), _torch(k),
+                              tstats.ExactBatch(X, Y, Z), chunk=4096)
+    for name, g, w in zip(tps.SuffStats._fields, auto, fixed):
+        assert _rel(g, w) <= RTOL, name
+    with pytest.raises(ValueError, match="auto"):
         tstats.suff_stats(tkernels.get("rbf")(2), _torch(k),
-                          tstats.ExactBatch(X, Y, Z), chunk="auto")
+                          tstats.ExactBatch(X, Y, Z), chunk="turbo")
     # the whole kernel family is ported; an unknown name lists it
     assert tkernels.get("matern52").name == "matern52"
     with pytest.raises(KeyError, match="available"):

@@ -391,21 +391,21 @@ def test_close_drains_inflight_submits_and_refuses_more(served):
         srv.register("gp2", kernel=kernel, state=st)
 
 
-def test_unported_server_features_raise(served):
+def test_unported_server_features_raise(served, tmp_path):
+    """Every server feature is ported now: persistence and the byte budget
+    (tests/test_torch_serve_persist.py) refuse only misuse, as the
+    reference's do."""
     kernel, st, _ = served
-    with pytest.raises(NotImplementedError, match="later slice"):
-        GPServer(store="states/", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    GPServer(store=tmp_path / "states", device="cpu").close()
+    with pytest.raises(ValueError, match="store"):
         GPServer(budget_bytes=1 << 20, device="cpu")
     srv = GPServer(device="cpu")
-    # registering a facade and refit are ported; a facade together with
-    # an explicit pair is ambiguous and refused
+    # a facade together with an explicit pair is ambiguous and refused
     with pytest.raises(ValueError, match="not both"):
         srv.register("m", object(), kernel=kernel, state=st)
     srv.register("m", kernel=kernel, state=st)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="store"):
         srv.save_all()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        GPServer.load("states/")
+    assert GPServer.load(tmp_path / "states", device="cpu").models() == ()
     with pytest.raises(ValueError, match="ascending"):
         GPServer(buckets=(4, 2), device="cpu")
