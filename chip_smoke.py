@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, data-parallel,
-persistence and tuning paths on one CUDA card.
+persistence, tuning and analysis paths, and the reference's GP-LVM dry run,
+on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -122,7 +123,7 @@ Phases (any failure exits non-zero and prints no result):
    did. Prints the times of save, load_meta, load, a lazy reload and
    save_all. Its state builds and update count towards B1, B3, B5 and
    B7's launches.
-14. The autotuner, on (every earlier phase runs with REPRO_TORCH_TUNE=0
+14. The autotuner, on (every other phase runs with REPRO_TORCH_TUNE=0
    over a fresh cache file, so they launch the untuned geometry), its
    cache in a temporary file: `tune.best_blocks` for all seven kernels in
    both dtypes at M = 100, Q = 1 (each candidate wave count's time and
@@ -133,7 +134,27 @@ Phases (any failure exits non-zero and prints no result):
    resolves the same winners with zero timing runs; a float32
    `SparseGPRegression(backend="pallas", chunk="auto")` fit of 3 steps
    from the cache. The tuner's launches count towards no main path.
-15. Times, with the card's name and power limit: each kernel and its plain
+15. The analysis passes on the card (their launches count towards no main
+   path): the kernel audit of all seven kernels in both dtypes at both
+   kernel shapes and the dry run's, on the card's occupancy queries, each
+   block's shared memory against the device's opt-in limit, every N-split
+   and tile covering its axis once, half inputs through the float32
+   entries; every compiled instance's registers, spills, stack and static
+   shared memory from the ptxas report. `assert_no_scaling(worse_than=
+   "N*M")` on the GP-LVM loss and its gradients through "fused" and
+   "pallas" on CUDA tensors at N = 65,536 and 131,072 (M = 100, Q = 1); the
+   fused path's worst intermediates printed at M = 128, Q = 1 and M = 256,
+   Q = 4. The serving (4) and persistence (13) phases run under the port's
+   `lockdep.watch()`: zero violations or the phase fails.
+16. The reference's GP-LVM dry run (`repro_torch.launch.gp_dryrun`) at
+   N = 16,777,216, M = 128, Q = 1, D = 3, one rank, float32, "fused": 5
+   Adam steps, each one B1 and one B2 launch and no other kernel; losses
+   finite; the peak device memory under the state's bytes plus B2's
+   per-(pair block, point) sums plus 16 elements a point; the dry run's
+   loss within 1e-5 of `BayesianGPLVM(backend="fused")`'s at the same
+   parameters on a 65,536-point prefix. Prints the record (step ms, peak
+   memory, flops, exps and bytes by part, roofline terms, share of bound).
+17. Times, with the card's name and power limit: each kernel and its plain
    version at the paper's shape (median of CUDA-event timings; a kernel's
    as one launch an event pair, its `ms`, and over 10 launches back to
    back, divided by 10, its `rate_ms`), the
@@ -155,9 +176,9 @@ from __future__ import annotations
 import datetime
 import inspect
 import json
+import math
 import multiprocessing
 import os
-import re
 import shutil
 import statistics
 import subprocess
@@ -187,6 +208,11 @@ from repro_torch.kernels import suffstats as ss  # noqa: E402
 from repro_torch.optim.adam import flatten, tree_map  # noqa: E402
 from repro_torch.serve import GPServer, StateStore, build_state  # noqa: E402
 from repro_torch import tune  # noqa: E402
+from repro_torch.analysis import kernel_audit, lockdep, trace_check  # noqa: E402
+from repro_torch.launch import gp_dryrun, roofline  # noqa: E402
+from repro_torch.launch.roofline import (bound_ms, bwd_bound_ms, kfu_bound_ms,  # noqa: E402
+                                         psi1_bound_ms, psi1_bwd_bound_ms,
+                                         psi2_bound_ms, psi2_bwd_bound_ms)
 from repro_torch.tune import autotune, search  # noqa: E402
 
 SEED = 0
@@ -233,14 +259,6 @@ TIMED_STEPS = 6  # the first is dropped
 # the grid: the same model through other kernels and other summation
 # orders, so the loss to TOL and each gradient leaf to this
 BACKEND_GRAD_TOL = 1e-8
-
-# NVIDIA H100 SXM published peaks (data sheet, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_PER_S = 67e12
-FP64_PER_S = 34e12
-# exp runs on the special-function units: 16 results a clock per SM
-# (CUDA programming guide, compute capability 9.0) x 132 SMs x 1.98 GHz
-SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 ROUTE = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/suffstats_fwd.cu",
          "replaces": "src/repro/kernels/suffstats.py:299", "library_ms": None}
@@ -318,40 +336,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_instance(mangled: str) -> str:
-    """A short name of a kernel instance from its mangled name, e.g.
-    "pair_kernel<double, 1>" or "point_kernel<float, 0, true>"."""
-    m = re.search(r"I([fd])((?:L[ib]\d+E)*)E", mangled)
-    if not m:
-        return mangled
-    # the template's name is the <length><name> just before its arguments
-    head = mangled[:m.start()]
-    names = [head[-n:] for n in range(1, len(head)) if head[:-n].endswith(str(n))]
-    if not names:
-        return mangled
-    args = ["float" if m.group(1) == "f" else "double"]
-    for kind, val in re.findall(r"L([ib])(\d+)E", m.group(2)):
-        args.append(val if kind == "i" else ("true" if val == "1" else "false"))
-    return f"{names[0]}<{', '.join(args)}>"
-
-
 def phase_build() -> None:
-    """Build every library, then print each kernel instance's registers and
-    spills from nvcc's -Xptxas -v report."""
+    """Build every library (each instance's registers and spills print in
+    the analysis phase, from nvcc's -Xptxas -v report)."""
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
-    for name, (secs, out) in _build.BUILD_LOG.items():
+    for name, (secs, _) in _build.BUILD_LOG.items():
         log(f"[build] {name}: nvcc {secs:.1f} s")
-        entry, spill = "?", ""
-        for line in out.splitlines():
-            if "Compiling entry function" in line:
-                entry = kernel_instance(line.split("'")[1])
-            elif "spill stores" in line:
-                spill = line.strip()
-            elif "Used" in line and "registers" in line:
-                regs = re.search(r"Used (\d+) registers", line).group(1)
-                log(f"[build]   {entry}: {regs} registers; {spill}")
 
 
 # ---------------------------------------------------------------------------
@@ -1827,7 +1819,7 @@ def phase_temporal() -> dict:
     matmul_ms = cuda_ms(lambda: A2 @ B2, reps=5)
     log(f"[time] temporal scan level ({TEMPORAL_N // 2} float64 ({d}, {d}) matrices): "
         f"torch.linalg.solve {solve_ms:.3f} ms, a batched product {matmul_ms:.3f} ms "
-        f"(bytes bound of the product {3 * A2.numel() * 8 / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+        f"(bytes bound of the product {3 * A2.numel() * 8 / roofline.HBM_BYTES_PER_S * 1e3:.3f} ms)")
     times.update(solve_ms=solve_ms, matmul_ms=matmul_ms)
     temporal_checks(model, t, Y)
     params = tree_map(lambda p: p.detach(), model.params)
@@ -2215,106 +2207,295 @@ def phase_autotune(data: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: times and the bounds
+# phase 15: the analysis passes on the card
 # ---------------------------------------------------------------------------
 
-def _bound(nbytes: int, flops: int, exps: int, dtype) -> tuple:
-    """(ms, "bytes" or "operations", the term that binds): the larger of
-    the bytes over the memory rate and the operations over their peak
-    rate. In float32 the exps run on the special-function units beside the
-    FP32 pipes; float64 has no exp unit, so each exp counts as one FP64
-    operation."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    if dtype == torch.float32:
-        t_flops, t_exps = flops / FP32_PER_S, exps / SFU_EXP_PER_S
-        t_ops, term = max((t_flops, "FP32 flops"), (t_exps, "exps on the SFUs"))
-    else:
-        t_ops, term = (flops + exps) / FP64_PER_S, "FP64 flops and exps"
-    if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes", "HBM bytes"
-    return 1e3 * t_ops, "operations", term
+ANALYSIS_N = 65_536  # the trace check's smaller N (the larger is twice it)
+ANALYSIS_CHUNK = 4096  # backend="pallas" streams its chunks
+# the kernel audit's problems: both kernel shapes and the dry run's
+AUDIT_SHAPES = KERNEL_SHAPES + ((16_777_216, 128, 1, 3),)
+# (M, Q, D) of the dry run and of the second kernel shape, where B2's
+# per-(pair block, point) sums (fault C6) come within 4x of an (N, M)
+# buffer: the trace check there must flag those sums and nothing else
+SCALING_C6 = ((128, 1, 3), (256, 4, 5))
 
 
-def bound_ms(N, M, Q, D, dtype) -> tuple:
-    """Least work of the forward at this shape. psi2 is symmetric, so
-    M (M + 1) / 2 pairs per point need an exp and ~(3Q + 2) flops; psiY
-    needs M exps and ~(3Q + 2D) flops per point."""
-    itemsize = torch.finfo(dtype).bits // 8
-    nbytes = itemsize * (N * (2 * Q + D) + M * Q + Q + M * M + M * D)
-    pairs = N * M * (M + 1) // 2
-    exps = pairs + N * M
-    flops = pairs * (3 * Q + 2) + N * M * (3 * Q + 2 * D)
-    return _bound(nbytes, flops, exps, dtype)
+def watched(fn):
+    """`fn` run under the port's `lockdep.watch()`: every lock the serving
+    tier creates meanwhile is checked against the declared hierarchy and
+    every observed order; the phase fails on any violation."""
+    def run(*args):
+        with lockdep.watch(raise_on_violation=False) as rec:
+            result = fn(*args)
+        log(f"[analysis] lockdep over {fn.__name__}: {rec.acquisitions} acquisitions, "
+            f"{len(rec.edges)} order edges "
+            f"({', '.join(f'{a} -> {b}' for a, b in sorted(rec.edges))}), "
+            f"{len(rec.violations)} violations")
+        check(not rec.violations, f"lockdep in {fn.__name__}: "
+              + "; ".join(str(v) for v in rec.violations))
+        return result
+    return run
 
 
-def bwd_bound_ms(N, M, Q, D, dtype) -> tuple:
-    """Least work of the reverse pass at this shape, each exponential
-    evaluated once (the kernel evaluates each psi2 one once, and the psi1
-    ones twice: in its point pass and its dZ pass). Per (point, pair): the
-    exponent, d = mu - zbar, d^2 r
-    and its sum (4Q); T = Gw E and t += T (2); sd += T d and sv += (T d) d
-    (4Q); P += E (1); A_q += (E r_q) d_q (3Q): 11Q + 3 flops and one exp.
-    Per (point, m): the exponent (4Q), y . gyv (2D), W1 = (y . gyv) K,
-    s1 += W1 (2), s1d += W1 d and s1v += (W1 d) d (4Q), dY += K gyv (2D),
-    dz1 += (W1 d) b (2Q): 10Q + 4D + 2 flops and one exp. The O(N Q)
-    per-point terms are left out (< 0.1 %). Bytes: mu, S, Y, Z, v, l, g2
-    and gY read once, dmu, dS, dY, dZ, dv and dl written once."""
-    itemsize = torch.finfo(dtype).bits // 8
-    nbytes = itemsize * (2 * N * (2 * Q + D) + 2 * M * Q + M * M + M * D + 2 * Q + 2)
-    pairs = N * M * (M + 1) // 2
-    exps = pairs + N * M
-    flops = pairs * (11 * Q + 3) + N * M * (10 * Q + 4 * D + 2)
-    return _bound(nbytes, flops, exps, dtype)
+def smem_optin() -> tuple:
+    """(bytes, where from) of the dynamic shared memory a block may opt in
+    to on cuda:0."""
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    if optin:
+        return int(optin), "the device's shared_memory_per_block_optin"
+    return ss.SMEM_LIMIT, "suffstats.SMEM_LIMIT (the device does not report its opt-in limit)"
 
 
-def psi2_bound_ms(N, M, Q, D, dtype) -> tuple:
-    """Least work of psi2 alone (B3): the fused forward's psi2 part, M (M +
-    1) / 2 pairs per point, an exp and ~(3Q + 2) flops each. Bytes: mu, S,
-    Z, v and l read, psi2 written once."""
-    itemsize = torch.finfo(dtype).bits // 8
-    nbytes = itemsize * (2 * N * Q + M * Q + Q + 1 + M * M)
-    pairs = N * M * (M + 1) // 2
-    return _bound(nbytes, pairs * (3 * Q + 2), pairs, dtype)
+def audit_on_card() -> None:
+    """The kernel audit on the card's occupancy queries at every audit
+    shape, against the device's opt-in limit; every instance's ptxas
+    resources printed once."""
+    budget, source = smem_optin()
+    log(f"[analysis] shared-memory budget a block: {budget} bytes ({source})")
+    card = search.Card(0)
+    for N, M, Q, D in AUDIT_SHAPES:
+        audits = kernel_audit.audit_kernels(kernel_audit.Problem(N, M, Q, D),
+                                            smem_budget_bytes=budget, card=card)
+        for a in audits:
+            grids = " ".join(f"{p.name}{list(p.grid)}x{p.block}" for p in a.passes)
+            log(f"[analysis] audit {a.name} {a.dtype} N={N} M={M} Q={Q} D={D}: {grids}, "
+                f"{a.smem_bytes} bytes of shared memory a block, scratch "
+                f"{a.scratch_bytes} bytes, compute {a.compute}"
+                + ("" if not a.findings else " FINDINGS " + "; ".join(
+                    f.describe() for f in a.findings)))
+            check(a.fits and not a.findings, f"kernel audit: {a.name} {a.dtype} "
+                  f"N={N} M={M} Q={Q}: {[f.describe() for f in a.findings]}")
+    for lib in _build.SOURCES:
+        rows = kernel_audit.ptxas_resources(lib)
+        check(bool(rows), f"no ptxas report for {lib}")
+        for r in rows:
+            log(f"[analysis] ptxas {lib} {r['instance']}: {r['registers']} registers, "
+                f"{r['spill_stores']} / {r['spill_loads']} bytes spill stores / loads, "
+                f"{r['stack_frame']} bytes stack frame (local), {r['lmem']} bytes lmem, "
+                f"{r['smem_static']} bytes static shared memory")
 
 
-def psi2_bwd_bound_ms(N, M, Q, D, dtype) -> tuple:
-    """Least work of psi2's reverse pass (B4): the fused reverse pass's
-    (point, pair) work without its (point, m) terms, each exponential once,
-    11Q + 3 flops a pair (bwd_bound_ms). Bytes: mu, S, Z, v, l and g2 read;
-    dmu, dS, dZ, dv and dl written once."""
-    itemsize = torch.finfo(dtype).bits // 8
-    nbytes = itemsize * (4 * N * Q + 2 * M * Q + M * M + 2 * Q + 2)
-    pairs = N * M * (M + 1) // 2
-    return _bound(nbytes, pairs * (11 * Q + 3), pairs, dtype)
+def _gplvm_case(N: int, M: int, Q: int, D: int, backend: str, chunk):
+    rng = np.random.default_rng(SEED)
+    Y = torch.as_tensor(rng.normal(size=(N, D)), dtype=torch.float32, device="cuda")
+    model = BayesianGPLVM(M=M, Q=Q, backend=backend, chunk=chunk, device="cuda")
+    return model._loss, (model.init_params(Y), Y), {"N": N, "M": M, "Q": Q, "D": D}
 
 
-def psi1_bound_ms(N, M, Q, D, dtype) -> tuple:
-    """Least work of psi1 (B5): per (point, m) an exp and ~(3Q + 2) flops
-    (the exponent and the v product). Bytes: mu, S, Z, v and l read, psi1
-    (N, M) written once, which binds."""
-    itemsize = torch.finfo(dtype).bits // 8
-    nbytes = itemsize * (2 * N * Q + M * Q + Q + 1 + N * M)
-    return _bound(nbytes, N * M * (3 * Q + 2), N * M, dtype)
+def c6_scratch_shape(N: int, M: int, Q: int) -> tuple:
+    """The shape of B2's per-(pair block, point) sums (fault C6) on this
+    card: (pair blocks, 1 + 3Q, N)."""
+    geo, _ = ss.card_geometry("suffstats_bwd", torch.empty(1, Q, device="cuda"))
+    return (ss.pair_blocks(M, geo.pairs_per_block), 1 + 3 * Q, N)
 
 
-def psi1_bwd_bound_ms(N, M, Q, D, dtype) -> tuple:
-    """Least work of psi1's reverse pass (B6): per (point, m) an exp and the
-    exponent (4Q), W1 = g v K (2), s1 += W1 (1), s1d += W1 d and s1v +=
-    (W1 d) d (4Q), dZ += (W1 d) b (2Q): 10Q + 3 flops. Bytes: mu, S, Z, v,
-    l and g (N, M) read, dmu, dS, dZ, dv and dl written once; g binds."""
-    itemsize = torch.finfo(dtype).bits // 8
-    nbytes = itemsize * (4 * N * Q + N * M + 2 * M * Q + 2 * Q + 2)
-    return _bound(nbytes, N * M * (10 * Q + 3), N * M, dtype)
+def scaling_on_card() -> None:
+    """`assert_no_scaling(worse_than="N*M")` on the GP-LVM loss and its
+    gradients through "fused" (B1, B2) and "pallas" (B5, B3, B6, B4 over
+    chunks) on CUDA tensors at N and 2N, at the paper's M and Q. Then the
+    fused path at the dry run's M and at M = 256, Q = 4, where the check
+    must fail on B2's per-(pair block, point) sums alone (fault C6: they
+    grow as N (pair blocks) (1 + 3Q)): any other violator fails the phase,
+    and so does a run where those sums no longer violate (C6 repaired: hold
+    these cases plainly then)."""
+    M, Q, D = PAPER[1:]
+    for backend, chunk in (("fused", None), ("pallas", ANALYSIS_CHUNK)):
+        loss, args, sizes = _gplvm_case(ANALYSIS_N, M, Q, D, backend, chunk)
+        try:
+            rep = trace_check.assert_no_scaling(loss, *args, axis="N", worse_than="N*M",
+                                                sizes=sizes, backward=True)
+        except trace_check.ScalingViolation as e:
+            raise SmokeFailure(f"trace check, GP-LVM {backend} on the card: {e}") from e
+        log(f"[analysis] trace GP-LVM {backend} loss and gradients, cuda, N={ANALYSIS_N} "
+            f"and {2 * ANALYSIS_N}, M={M}, Q={Q}: {len(rep.entries)} call sites, worst "
+            f"{rep.worst.describe()}; below O(N*M) with margin 4")
+    for m, q, d in SCALING_C6:
+        loss, args, sizes = _gplvm_case(ANALYSIS_N, m, q, d, "fused", None)
+        scratch = c6_scratch_shape(ANALYSIS_N, m, q)
+        try:
+            trace_check.assert_no_scaling(loss, *args, axis="N", worse_than="N*M",
+                                          sizes=sizes, backward=True)
+        except trace_check.ScalingViolation as e:
+            violations = e.violations
+        else:
+            violations = []
+        c6 = [v for v in violations
+              if v.shape == scratch and v.source.endswith("in suffstats_bwd_cuda")]
+        other = [v for v in violations if v not in c6]
+        for v in violations:
+            log(f"[analysis] trace GP-LVM fused, cuda, M={m}, Q={q}: violation "
+                f"{'(C6) ' if v in c6 else ''}{v.describe()} (coefficient {v.coeff:.0f} a "
+                f"point against M = {m})")
+        check(not other, f"trace check, GP-LVM fused M={m} Q={q}: violators besides "
+              f"C6's scratch: {[v.describe() for v in other]}")
+        check(bool(c6), f"trace check, GP-LVM fused M={m} Q={q}: B2's point sums "
+              f"{scratch} no longer violate O(N*M) (C6 repaired?): hold this case plainly")
 
 
-def kfu_bound_ms(N, M, Q, D, dtype) -> tuple:
-    """Least work of K_fu (B7): per (point, m) an exp and ~(3Q + 1) flops
-    (the exponent and the v product). Bytes: X, Z, v and l read, K_fu
-    (N, M) written once, which binds."""
-    itemsize = torch.finfo(dtype).bits // 8
-    nbytes = itemsize * (N * Q + M * Q + Q + 1 + N * M)
-    return _bound(nbytes, N * M * (3 * Q + 1), N * M, dtype)
+def phase_analysis() -> None:
+    """The kernel audit and the trace check on the card; their launches
+    count towards no main path."""
+    saved = counts()
+    audit_on_card()
+    scaling_on_card()
+    set_counts(saved)
 
+
+# ---------------------------------------------------------------------------
+# phase 16: the GP-LVM dry run at the reference's production scale
+# ---------------------------------------------------------------------------
+
+DRYRUN = (16_777_216, 128, 1, 3)  # N, M, Q, D of src/repro/launch/gp_dryrun.py
+DRYRUN_PREFIX = 65_536
+DRYRUN_TOL = 1e-5  # float32 loss vs the facade's, relative
+# the prefix's loss and each gradient leaf through "fused" (B1, B2) against
+# "jnp" (the plain versions) on the same inputs, relative (a leaf's to its
+# largest entry): float32's gradients carry the cancellations of the
+# collapsed bound (the lengthscale's 1.0e-3 apart at most on an H100 80GB
+# HBM3 at 700 W; 5x that is held), float64 holds mesh='s tolerances
+DRYRUN_PLAIN_TOL = {torch.float64: (1e-10, 1e-8), torch.float32: (1e-5, 5e-3)}
+# elements a point the step may hold beyond the state and B2's point sums
+# (the scratch of fault C6, counted in full): the cotangents dmu, dS, dY
+# (2Q + D), S = exp(q_logS), the KL's and Adam's per-leaf temporaries
+DRYRUN_POINT_SLACK = 16
+DRYRUN_TIMEOUT_S = 600
+
+
+def dryrun_kernel_ms(N: int, M: int, Q: int, D: int) -> tuple:
+    """(B1 ms, B2 ms) at the dry run's shape: one launch an event pair,
+    median of 5 after 2, on the dry run's own draw (random cotangents)."""
+    params, Y = gp_dryrun.make_problem(N, M, Q, D, dtype=torch.float32,
+                                       device=torch.device("cuda", 0))
+    kern = params["kern"]
+    x = (params["q_mu"], torch.exp(params["q_logS"]), Y, params["Z"],
+         torch.exp(kern["log_variance"]), torch.exp(kern["log_lengthscale"]))
+    g = [t.float() for t in bwd_cotangents(M, D)]
+    return (cuda_ms(lambda: ss.suffstats_cuda(*x), reps=5),
+            cuda_ms(lambda: ss.suffstats_bwd_cuda(*x, *g), reps=5))
+
+
+def dryrun_prefix(N: int, M: int, Q: int, D: int, dtype: torch.dtype) -> tuple:
+    """(params, Y): the dry run's own draw cut to its first N points."""
+    params, Y = gp_dryrun.make_problem(DRYRUN[0], M, Q, D, dtype=dtype,
+                                       device=torch.device("cuda", 0))
+    pre = {**params, "q_mu": params["q_mu"][:N].clone(),
+           "q_logS": params["q_logS"][:N].clone()}
+    return pre, Y[:N].clone()
+
+
+def _as_dtype(tree, dtype: torch.dtype):
+    return {k: _as_dtype(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def dryrun_prefix_checks(params: dict, Y, M: int, D: int) -> None:
+    """On the dry run's draw cut to DRYRUN_PREFIX points, at its M: B1 and
+    B2 against their float64 plain versions on the same inputs; the dry
+    run's loss and every gradient leaf through "fused" against "jnp" (the
+    plain versions) on the same inputs, in float32 and float64; the dry
+    run's float32 loss against `BayesianGPLVM(backend="fused")`'s."""
+    kern = params["kern"]
+    x64 = [t.double() for t in (params["q_mu"], torch.exp(params["q_logS"]), Y,
+                                params["Z"], torch.exp(kern["log_variance"]),
+                                torch.exp(kern["log_lengthscale"]))]
+    g64 = bwd_cotangents(M, D)
+    tol = TOL[torch.float32]
+    for what, kernel, plain, names, args in (
+            ("B1", ss.suffstats_cuda, ss.suffstats_fused_plain, ("psi2", "psiY"), x64),
+            ("B2", ss.suffstats_bwd_cuda, ss.suffstats_vjp_plain, BWD_OUTPUTS, x64 + g64)):
+        want = _as_tuple(plain(*args))
+        got = _as_tuple(kernel(*[a.float() for a in args]))
+        for name, g, w in zip(names, got, want):
+            r = rel_err(g, w)
+            log(f"[dryrun] prefix {what} {name} float32 vs float64 plain: rel err {r:.3e} "
+                f"(tol {tol:g})")
+            check(bool(torch.isfinite(g).all()) and r <= tol,
+                  f"dry-run prefix {what} {name}: rel err {r:.3e}")
+    with gp_dryrun.process_group(0, 1, torch.device("cuda", 0)):
+        mesh = distributed.make_gp_mesh()
+        for dtype, (loss_tol, grad_tol) in DRYRUN_PLAIN_TOL.items():
+            p, y = _as_dtype(params, dtype), Y.to(dtype)
+            res = {be: inference.value_and_grad(gp_dryrun.loss_fn(mesh, be), p, (y,))
+                   for be in ("fused", "jnp")}
+            (lf, gf), (lj, gj) = res["fused"], res["jnp"]
+            r = rel_err(lf, lj)
+            errs = {path: rel_err(a, b) for path, a, b in
+                    zip(flatten(gf)[0], flatten(gf)[1], flatten(gj)[1])}
+            log(f"[dryrun] prefix {str(dtype)[6:]} fused vs jnp: loss {float(lf)!r} vs "
+                f"{float(lj)!r}, rel err {r:.3e} (tol {loss_tol:g}); gradients "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {grad_tol:g})")
+            check(np.isfinite(float(lf)) and r <= loss_tol,
+                  f"dry-run prefix {dtype} loss: fused vs jnp rel err {r:.3e}")
+            bad = {k: v for k, v in errs.items() if not v <= grad_tol}
+            check(not bad, f"dry-run prefix {dtype} gradients fused vs jnp: {bad}")
+        with torch.no_grad():
+            got = float(gp_dryrun.loss_fn(mesh, "fused")(params, Y))
+    with torch.no_grad():
+        want_loss = float(BayesianGPLVM(M=M, Q=params["Z"].shape[1], backend="fused",
+                                        device="cuda")._loss(params, Y))
+    err = abs(got - want_loss) / abs(want_loss)
+    log(f"[dryrun] prefix N={DRYRUN_PREFIX}: dry-run loss {got!r}, BayesianGPLVM(fused) "
+        f"{want_loss!r}, rel err {err:.3g} (tol {DRYRUN_TOL})")
+    check(np.isfinite(got) and err <= DRYRUN_TOL,
+          f"dry-run loss {got} vs facade {want_loss} on the prefix")
+
+
+def phase_dryrun() -> dict:
+    """`python -m repro_torch.launch.gp_dryrun` at the reference's shape,
+    W = 1, float32, "fused", in a process of its own, as a user runs it: the
+    losses finite and falling at every step, each step one B1 and one B2
+    launch and no other kernel, the peak device memory under the state plus
+    B2's per-(pair block, point) sums (fault C6's scratch) plus
+    DRYRUN_POINT_SLACK elements a point; B1 and B2 timed alone at that
+    shape; on the draw's first DRYRUN_PREFIX points, `dryrun_prefix_checks`.
+    Returns the record and the child's launches (this process's launches
+    count towards no main path)."""
+    N, M, Q, D = DRYRUN
+    saved = counts()
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "record.json"
+        env = {**os.environ, "PYTHONPATH": str(root / "src")}
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.gp_dryrun", "--n", str(N),
+             "--m", str(M), "--q", str(Q), "--d", str(D), "--backend", "fused",
+             "--out", str(out)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        for line in proc.stdout.splitlines():
+            log(f"[dryrun] {line}")
+        check(proc.returncode == 0, f"gp_dryrun exited {proc.returncode}: {proc.stderr[-3000:]}")
+        rec = json.loads(out.read_text())
+    log(f"[dryrun] record {json.dumps({k: v for k, v in rec.items() if k != 'parts'})}")
+    for part in rec["parts"]:
+        log(f"[dryrun] part {part['part']}: {part['flops']:.4g} flops, {part['exps']:.4g} "
+            f"exps, {part['bytes']:.4g} bytes, bound {part['bound_ms']:.4f} ms")
+    losses = rec["losses"]
+    check(all(np.isfinite(losses)), f"dry run losses {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"dry run losses do not fall at every step: {losses}")
+    launches = rec["launches"]
+    want = {k: gp_dryrun.STEPS if k in ("suffstats_fwd", "suffstats_bwd") else 0
+            for k in COUNTERS}
+    check(launches == want, f"dry run launches {launches}, want {want}")
+    point_sums = math.prod(c6_scratch_shape(N, M, Q)) * 4
+    bound = rec["memory"]["state_bytes"] + point_sums + DRYRUN_POINT_SLACK * N * 4
+    peak = rec["memory"]["peak_bytes"]
+    log(f"[dryrun] peak {peak} bytes ({peak / 2**30:.3f} GiB): state "
+        f"{rec['memory']['state_bytes']} + B2's point sums (C6) {point_sums} + "
+        f"{DRYRUN_POINT_SLACK} elements a point = bound {bound} bytes")
+    check(peak <= bound, f"dry run peak {peak} bytes above its bound {bound}")
+    b1, b2 = dryrun_kernel_ms(N, M, Q, D)
+    log(f"[dryrun] B1 {b1:.3f} ms, B2 {b2:.3f} ms one launch each at N={N} M={M}; the "
+        f"rest of the {rec['step_ms']:.3f} ms step {rec['step_ms'] - b1 - b2:.3f} ms")
+    dryrun_prefix_checks(*dryrun_prefix(DRYRUN_PREFIX, M, Q, D, torch.float32), M, D)
+    set_counts(saved)
+    return {"record": rec, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: times and the bounds
+# ---------------------------------------------------------------------------
 
 def step_ms(model) -> float:
     """Median wall time of one training step after the first (loss, its
@@ -2575,7 +2756,7 @@ def main() -> int:
         bwd_errs = phase("reverse kernel vs plain", phase_bwd_kernels)
         single_errs = phase("single-statistic kernels vs plain", phase_single_kernels)
         data = serving_data(PAPER[0], PAPER[1])
-        served = phase("serving", phase_serving, data)
+        served = phase("serving", watched(phase_serving), data)
         trained = phase("training", phase_training, data)
         pallas = phase("pallas training", phase_pallas, data)
         sgpr = phase("sgpr pallas training", phase_sgpr_pallas, data)
@@ -2585,8 +2766,10 @@ def main() -> int:
         phase("half precision through the ops", phase_half)
         family = phase("kernel family", phase_kernel_family, data)
         phase("temporal", phase_temporal)
-        persist = phase("persistence", phase_persistence, data)
+        persist = phase("persistence", watched(phase_persistence), data)
         phase("autotune", phase_autotune, data)
+        phase("analysis", phase_analysis)
+        dryrun = phase("dry run", phase_dryrun)
         times = phase("times", phase_times, trained, pallas, sgpr, data)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -2601,13 +2784,15 @@ def main() -> int:
         # the Product-of-RBFs fits (phase 11) run in float64
         product = family if dtype == torch.float64 else dict.fromkeys(family, 0)
         stored = persist[dtype]["launches"]  # phase 13's state builds and update
+        # phase 16's dry run steps in float32
+        dry = dryrun["launches"] if dtype == torch.float32 else dict.fromkeys(COUNTERS, 0)
         kernels.append({"name": f"suffstats_fwd_{name}", **ROUTE,
                         "launches": served[dtype]["launches"] + product["suffstats_fwd"]
-                        + stored["suffstats_fwd"],
+                        + stored["suffstats_fwd"] + dry["suffstats_fwd"],
                         "max_abs_err": errs[dtype], **times[dtype, "fwd"]})
         kernels.append({"name": f"suffstats_bwd_{name}", **ROUTE_BWD,
                         "launches": trained[dtype]["launches"]["bwd"]
-                        + product["suffstats_bwd"],
+                        + product["suffstats_bwd"] + dry["suffstats_bwd"],
                         "max_abs_err": bwd_errs[dtype], **times[dtype, "bwd"]})
         # B3-B6 from the GP-LVM's pallas path, B7 from the SGPR's
         launches = {**pallas[dtype]["launches"],

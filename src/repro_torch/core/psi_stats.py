@@ -32,12 +32,12 @@ digits, and the float32 bound is already fragile).
 from __future__ import annotations
 
 import contextlib
-import threading
 from typing import NamedTuple
 
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.analysis import lockdep
 from repro_torch.kernels import ref
 
 
@@ -69,7 +69,7 @@ class SuffStats(NamedTuple):
         return SuffStats(*(x - y for x, y in zip(a, b)))
 
 
-_precision_lock = threading.Lock()
+_precision_lock = lockdep.named_lock("repro_torch.core.psi_stats._precision_lock")
 _pinned = 0  # threads inside full_float32_matmul
 _saved = None  # the caller's setting, given back when the last one leaves
 

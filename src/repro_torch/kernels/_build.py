@@ -18,10 +18,11 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
+
+from repro_torch.analysis import lockdep
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -34,9 +35,10 @@ SOURCES: Dict[str, Path] = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = lockdep.named_lock("repro_torch.kernels._build._lock")
 _loaded: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds, nvcc's output incl. the -Xptxas -v register report)
+# of the builds this process ran
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
 
 
@@ -81,7 +83,19 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, target: Path,
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed building {SOURCES[name].name} "
                            f"(exit {proc.returncode}):\n{out}")
+    report = target.with_suffix(".ptxas.txt")
+    report.write_text(out)  # the -Xptxas -v report, for a later process
     os.replace(tmp, target)  # atomic: a concurrent build sees old or new
+
+
+def ptxas_report(name: str) -> str | None:
+    """nvcc's output for the current library `name` (its -Xptxas -v
+    register report): this process's build, else the report the build that
+    made the library left beside it; None where neither exists."""
+    if name in BUILD_LOG:
+        return BUILD_LOG[name][1]
+    report = _target(name).with_suffix(".ptxas.txt")
+    return report.read_text() if report.exists() else None
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
@@ -104,12 +118,14 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = build([name])[name]
-        with _lock:
-            lib = _loaded.get(name)
-            if lib is None:
-                lib = ctypes.CDLL(str(path))
-                _loaded[name] = lib
+    with _lock:
+        lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    path = build([name])[name]
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
     return lib

@@ -32,10 +32,16 @@ card's resident blocks (`repro_torch.tune.search`); `None` consults
 and nothing cached that is one wave, the split counts of an untuned
 launch. The CPU path has no grid: it never consults the tuner and ignores
 a pinned value.
+
+Inside a `recording()` block each op notes every statistics pass it runs
+(a `StatsPass`: the kernel library, N, M, Q, D, dtype, and whether the
+kernel launched or its plain version ran): what `launch.cost` counts a
+step's work from, on the card and on the CPU alike.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -88,6 +94,46 @@ def _knobs(bwd_backend, fwd_name, bwd_name, block, bwd_block, Z) -> _Knobs:
 _HALF = (torch.bfloat16, torch.float16)
 
 
+class StatsPass(NamedTuple):
+    """One statistics pass an op ran: the kernel library it belongs to,
+    the shapes (D = 0 where the op takes no Y), the dtype it computed in,
+    and whether the kernel launched (False: its plain version ran)."""
+    lib: str
+    N: int
+    M: int
+    Q: int
+    D: int
+    dtype: torch.dtype
+    kernel: bool
+
+
+_RECORDING: List[List[StatsPass]] = []  # the open recording() blocks' logs
+
+
+@contextlib.contextmanager
+def recording():
+    """Note every statistics pass the ops run inside the block; yields the
+    list they are appended to."""
+    log: List[StatsPass] = []
+    _RECORDING.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDING.remove(log)
+
+
+def _note(name: str, x, m: int, d: int, kernel: bool) -> None:
+    """Append the pass of the kernel the tuner names `name` to every open
+    `recording()` log."""
+    if _RECORDING:
+        from repro_torch.tune import search  # the tuner's kernel table
+
+        rec = StatsPass(search.KERNELS[name].lib, int(x.shape[0]), m,
+                        int(x.shape[1]), d, _compute_dtype(x.dtype), kernel)
+        for log in _RECORDING:
+            log.append(rec)
+
+
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype in _HALF else dtype
 
@@ -123,7 +169,10 @@ def _forward(ctx, inputs, knobs: _Knobs, plain, kernel):
     ctx.knobs = knobs
     x = [t.to(inputs[0].dtype) for t in inputs]
     ctx.save_for_backward(*x)
-    if x[0].device.type == "cpu":
+    ctx.d = int(x[2].shape[1]) if knobs.fwd_name == "suffstats_pallas" else 0
+    on_cpu = x[0].device.type == "cpu"
+    _note(knobs.fwd_name, x[0], knobs.m, ctx.d, not on_cpu)
+    if on_cpu:
         return plain(*x)
     return _on_card(kernel, x, x[0].dtype,
                     _waves(knobs.fwd_name, knobs.block, x[0], knobs.m))
@@ -137,12 +186,14 @@ def _backward(ctx, cotangents, plain, kernel):
     g = [c.to(x[0].dtype) for c in cotangents]
     on_cpu = x[0].device.type == "cpu"
     if knobs.bwd_backend == "jnp" or (knobs.bwd_backend == "auto" and on_cpu):
+        _note(knobs.bwd_name, x[0], knobs.m, ctx.d, False)
         grads = plain(*x, *g)
     elif on_cpu:
         raise ValueError(
             "bwd_backend='pallas' needs CUDA tensors: the reverse kernel "
             "has no CPU mode; use 'auto' or 'jnp' on the CPU")
     else:
+        _note(knobs.bwd_name, x[0], knobs.m, ctx.d, True)
         grads = _on_card(kernel, (*x, *g), x[0].dtype,
                          _waves(knobs.bwd_name, knobs.bwd_block, x[0], knobs.m))
     return (*(gr.to(dt) if need else None for gr, dt, need in

@@ -30,32 +30,35 @@ _STATE_DTYPES = {"float32": torch.float32, "float64": torch.float64,
                  "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
+def _walk(t, prefix, paths, leaves) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _walk(t[k], (*prefix, str(k)), paths, leaves)
+    else:
+        paths.append("/".join(prefix))
+        leaves.append(t)
+
+
 def flatten(tree: Tree) -> Tuple[List[str], List[torch.Tensor]]:
-    """(paths, leaves) in sorted key order; a path joins keys with "/"."""
-    paths, leaves = [], []
-
-    def walk(t, prefix):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], (*prefix, str(k)))
-        else:
-            paths.append("/".join(prefix))
-            leaves.append(t)
-
-    walk(tree, ())
+    """(paths, leaves) in sorted key order; a path joins keys with "/".
+    The walk is a module-level function: a nested one that calls itself
+    sits in a reference cycle with its closure, which would keep `leaves`
+    (a training step's tensors) alive until the cyclic collector runs."""
+    paths: List[str] = []
+    leaves: List[torch.Tensor] = []
+    _walk(tree, (), paths, leaves)
     return paths, leaves
+
+
+def _build(t, it):
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def unflatten(like: Tree, leaves) -> Tree:
     """A tree shaped like `like` holding `leaves` (in `flatten`'s order)."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-
-    return build(like)
+    return _build(like, iter(leaves))
 
 
 def tree_map(fn: Callable, tree: Tree) -> Tree:

@@ -31,13 +31,13 @@ from __future__ import annotations
 
 import functools
 import os
-import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import lockdep
 from repro_torch.tune import cache, search
 
 __all__ = [
@@ -64,13 +64,15 @@ _ENABLED_OVERRIDE: Optional[bool] = None
 # racing the same cold key serialize and agree on one winner (the second
 # lands on the memo the first filled). Re-entrant: a chunk measurement
 # through the fused op resolves that op's blocks inside it.
-_LOCK = threading.RLock()
+_LOCK = lockdep.named_lock("repro_torch.tune.autotune._LOCK", kind="rlock")
 _MEMO: Dict[tuple, Any] = {}  # (cache path, key) -> winner
 
 _TIMING_RUNS = 0
 
 _WARMUP = 1
 _ITERS = 3
+# calls back to back between a CUDA-event pair
+_INNER = 10
 
 # the measuring N of a forced run on the CPU (no grid to spread over)
 CPU_MEASURE_N = 1024
@@ -130,28 +132,51 @@ def make_key(kind: str, name: str, dtype, m: int, q: int, extra: str = "",
 
 
 def _time_fn(fn: Callable[[], Any]) -> float:
-    """Median-of-_ITERS wall time of one candidate after _WARMUP calls;
-    `fn` synchronizes the card itself. Monkeypatchable in tests;
-    `timing_runs` is counted by the measure_* callers, not here, so fake
-    timers still register."""
+    """Seconds one call of a candidate takes, the median of _ITERS
+    measurements after _WARMUP calls. On a CUDA device (`fn.device`), each
+    measurement is a CUDA-event pair around _INNER calls back to back,
+    divided by _INNER: the device's time, with each call's host work
+    overlapping the previous call's kernels, as in a training step (the
+    method of chip_smoke.py's `rate_ms`). Elsewhere, the host clock around
+    one call that synchronizes. Monkeypatchable in tests; `timing_runs` is
+    counted by the measure_* callers, not here, so fake timers still
+    register."""
     for _ in range(_WARMUP):
         fn()
+    dev = getattr(fn, "device", None)
     times = []
     for _ in range(_ITERS):
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
+        if dev is not None and dev.type == "cuda":
+            with torch.cuda.device(dev):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(_INNER):
+                    fn.call()
+                end.record()
+                end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3 / _INNER)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
     times.sort()
     return times[len(times) // 2]
 
 
-def _synced(call: Callable[[], Any], dev: torch.device) -> Callable[[], Any]:
-    def fn():
-        out = call()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+class _Synced:
+    """A candidate's call on `device`; calling it synchronizes the device
+    after the call (`call` alone does not)."""
+
+    def __init__(self, call: Callable[[], Any], device: torch.device):
+        self.call = call
+        self.device = device
+
+    def __call__(self):
+        out = self.call()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         return out
-    return fn
 
 
 def kernel_inputs(kernel_name: str, problem: search.Problem, dtype=None,
@@ -188,7 +213,7 @@ def run_kernel(kernel_name: str, args: tuple, waves: int):
 def measure_blocks(kernel_name: str, candidates, *,
                    problem: search.Problem = search.Problem(), dtype=None,
                    device=None) -> Dict[int, float]:
-    """Wall time per candidate wave count on the real kernel wrapper (the
+    """Time per candidate wave count (`_time_fn`) on the real kernel wrapper (the
     inputs' values do not change the time)."""
     global _TIMING_RUNS
     dev = _device(device)
@@ -197,7 +222,7 @@ def measure_blocks(kernel_name: str, candidates, *,
         out: Dict[int, float] = {}
         for w in candidates:
             _TIMING_RUNS += 1
-            out[int(w)] = _time_fn(_synced(
+            out[int(w)] = _time_fn(_Synced(
                 functools.partial(run_kernel, kernel_name, args, int(w)), dev))
     return out
 
@@ -205,7 +230,7 @@ def measure_blocks(kernel_name: str, candidates, *,
 def measure_chunks(candidates, *, n: int, m: int, q: int, d: int,
                    dtype=None, backend: str = "jnp",
                    bwd_backend: str = "auto", device=None) -> Dict[int, float]:
-    """Wall time per streaming chunk size through the real
+    """Time per streaming chunk size (`_time_fn`) through the real
     `gp.stats.streaming_suff_stats` loop (expected statistics under an RBF
     kernel — the paper's hot path)."""
     global _TIMING_RUNS
@@ -223,7 +248,7 @@ def measure_chunks(candidates, *, n: int, m: int, q: int, d: int,
     with torch.no_grad():
         for c in candidates:
             _TIMING_RUNS += 1
-            out[int(c)] = _time_fn(_synced(functools.partial(
+            out[int(c)] = _time_fn(_Synced(functools.partial(
                 streaming_suff_stats, kern, params, ExpectedBatch(mu, S, Y, Z),
                 backend=backend, chunk=int(c), bwd_backend=bwd_backend), dev))
     return out

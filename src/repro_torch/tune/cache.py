@@ -21,8 +21,9 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-import threading
 from typing import Any, Dict, Optional
+
+from repro_torch.analysis import lockdep
 
 __all__ = ["SCHEMA_VERSION", "CACHE_ENV", "cache_path", "load_entries",
            "lookup", "store"]
@@ -32,7 +33,7 @@ CACHE_ENV = "REPRO_TORCH_TUNE_CACHE"
 
 # guards read-merge-write cycles within this process; cross-process safety
 # comes from the atomic replace (last writer wins per whole document)
-_LOCK = threading.RLock()
+_LOCK = lockdep.named_lock("repro_torch.tune.cache._LOCK", kind="rlock")
 
 
 def cache_path() -> str:

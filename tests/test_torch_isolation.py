@@ -22,8 +22,19 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), leaked)
+print(len(names), leaked, ",".join(names))
 """
+
+# the analysis passes and launch tools; among them the stdlib-only lock
+# model and verifier the port's lock-holding modules import
+NEW_MODULES = {
+    "repro_torch.analysis", "repro_torch.analysis.__main__",
+    "repro_torch.analysis.concurrency", "repro_torch.analysis.kernel_audit",
+    "repro_torch.analysis.lint", "repro_torch.analysis.lockdep",
+    "repro_torch.analysis.trace_check", "repro_torch.launch",
+    "repro_torch.launch.cost", "repro_torch.launch.gp_dryrun",
+    "repro_torch.launch.memory", "repro_torch.launch.roofline",
+}
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
@@ -31,8 +42,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, leaked = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 31  # every module of the port, checkpoint/ and tune/ too
+    count, leaked, names = out.stdout.strip().split(" ", 2)
+    assert int(count) >= 43  # every module of the port, analysis/ and launch/ too
+    assert NEW_MODULES <= set(names.split(","))
     assert leaked == "[]", leaked
 
 
@@ -76,6 +88,9 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
         convert.temporal_state_from_numpy(fields)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gplvm_synthetic(0, 8)
+    from repro_torch.launch import gp_dryrun
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gp_dryrun.main(["--n", "64", "--m", "4", "--out", "unused.json"])
     # the same calls run where the caller asks for the CPU
     GPServer(device="cpu").close()
     assert convert.params_from_numpy(params, device="cpu")["Z"].device.type == "cpu"

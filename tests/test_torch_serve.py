@@ -11,7 +11,8 @@ Torch against torch, the server behaviours of tests/test_serve.py at its
 tolerances: bucketed equals unpadded, submit round-trips under
 concurrency, update equals a from-scratch build, downdate inverts update,
 the downdate guard raises, admission control and deadlines fail only their
-own requests, and a closed server refuses work.
+own requests, and a closed server refuses work. Every test runs under the
+port's `lockdep.watch()` (zero lock-order violations).
 """
 import threading
 import time
@@ -27,6 +28,7 @@ from repro import serve as jserve
 from repro.gp import BayesianGPLVM, SparseGPRegression
 from repro.gp import get as jget
 from repro_torch import convert
+from repro_torch.analysis import lockdep
 from repro_torch.core.psi_stats import SuffStats
 from repro_torch.gp import ExactBatch, ExpectedBatch, get, suff_stats
 from repro_torch.serve import (GPServer, QueueFullError, ServerClosedError,
@@ -34,6 +36,18 @@ from repro_torch.serve import (GPServer, QueueFullError, ServerClosedError,
 from repro_torch.serve.server import _Request
 
 RTOL = 1e-10
+
+
+@pytest.fixture(autouse=True)
+def _lockdep_watch():
+    """Every test of this file runs under the port's `lockdep.watch()`:
+    each lock the serving tier creates meanwhile is checked against
+    LOCK_HIERARCHY and every observed order, so each test doubles as a
+    deadlock check. A violation raised in a worker thread may end in a
+    Future; the recorder keeps it, asserted here."""
+    with lockdep.watch() as rec:
+        yield
+    rec.assert_clean()
 
 
 def _rel(got, want) -> float:

@@ -9,6 +9,8 @@ ways, for both state kinds, a Sum/Product spec and a schema-1 manifest:
 every leaf bitwise equal and predictions within PRED_RTOL (relative to
 max|reference|) in float64 — the two packages' predict epilogues round
 apart, the stored bits never do.
+Every test runs under the port's `lockdep.watch()` (zero lock-order
+violations).
 """
 import json
 
@@ -25,6 +27,7 @@ from repro.gp.stats import ExactBatch as JExactBatch
 from repro.serve import StateStore as JStateStore
 from repro.temporal.model import TemporalState as JTemporalState
 from repro_torch import serve
+from repro_torch.analysis import lockdep
 from repro_torch.gp import ExactBatch, get, suff_stats
 from repro_torch.serve import (PERSIST_SCHEMA, CheckpointCorruptError,
                                GPServer, StateStore, TemporalState,
@@ -32,6 +35,18 @@ from repro_torch.serve import (PERSIST_SCHEMA, CheckpointCorruptError,
 from repro_torch.serve.server import BUDGET_ENV
 
 PRED_RTOL = 1e-12
+
+
+@pytest.fixture(autouse=True)
+def _lockdep_watch():
+    """Every test of this file runs under the port's `lockdep.watch()`:
+    each lock the serving tier creates meanwhile is checked against
+    LOCK_HIERARCHY and every observed order, so each test doubles as a
+    deadlock check. A violation raised in a worker thread may end in a
+    Future; the recorder keeps it, asserted here."""
+    with lockdep.watch() as rec:
+        yield
+    rec.assert_clean()
 
 
 def _fitted(seed=0, N=160, M=10, Q=1, phase=0.0):
