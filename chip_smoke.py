@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, data-parallel,
-persistence, tuning and analysis paths, and the reference's GP-LVM dry run,
-on one CUDA card.
+persistence, tuning and analysis paths, the reference's GP-LVM dry run and
+the dense LM (smollm-360m at full width), on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -142,15 +142,15 @@ Phases (any failure exits non-zero and prints no result):
    entries; every compiled instance's registers, spills, stack and static
    shared memory from the ptxas report. `assert_no_scaling(worse_than=
    "N*M")` on the GP-LVM loss and its gradients through "fused" and
-   "pallas" on CUDA tensors at N = 65,536 and 131,072 (M = 100, Q = 1); the
-   fused path's worst intermediates printed at M = 128, Q = 1 and M = 256,
-   Q = 4. The serving (4) and persistence (13) phases run under the port's
+   "pallas" on CUDA tensors at N = 65,536 and 131,072 (M = 100, Q = 1), and
+   through "fused" at M = 128, Q = 1 and M = 256, Q = 4, where B2's
+   per-point sums over all of N once violated it (fault C6). The serving (4) and persistence (13) phases run under the port's
    `lockdep.watch()`: zero violations or the phase fails.
 16. The reference's GP-LVM dry run (`repro_torch.launch.gp_dryrun`) at
    N = 16,777,216, M = 128, Q = 1, D = 3, one rank, float32, "fused": 5
    Adam steps, each one B1 and one B2 launch and no other kernel; losses
    finite; the peak device memory under the state's bytes plus B2's
-   per-(pair block, point) sums plus 16 elements a point; the dry run's
+   per-point sums (one chunk's) plus 16 elements a point; the dry run's
    loss within 1e-5 of `BayesianGPLVM(backend="fused")`'s at the same
    parameters on a 65,536-point prefix. Prints the record (step ms, peak
    memory, flops, exps and bytes by part, roofline terms, share of bound).
@@ -168,11 +168,31 @@ Phases (any failure exits non-zero and prints no result):
    printed by phase 8), with one profiled step each: device time by
    kernel and the device's idle share.
 
+18. The dense LM at smollm-360m's full width (`[lm]` lines; 361,821,120
+   bf16 parameters from seed 0, no weights fetched): served through
+   `launch.serve` at B = 4, a 512-token prompt and 64 greedy tokens
+   (finite logits, padded ids below -1e29, two runs' tokens equal; prefill
+   ms, decode tok/s, peak GiB; one decode step profiled); in float32, the
+   decode after a 127-token prefill against the 128-token forward (the
+   reference's 1e-3 max(scale, 1)) and, at B = 2, S = 256 with TF32 off,
+   the loss and every gradient leaf against the same model in float64
+   (LM_F64_TOL); trained through `launch.train.setup` and `TrainLoop` at
+   B = 8, S = 2,048 for 5 steps on one repeated `TokenStream` batch (first
+   loss within 0.1 of `expected_first_loss`, the last below the first;
+   step ms, tokens/s, peak GiB), a fresh loop resumed from the checkpoint
+   at step 5 with its data position and bitwise-equal parameters and
+   moments, its steps 6-8 held to the uninterrupted run's (LM_RESUME_TOL),
+   one step profiled; the GP head (`core.gp_head`) fitted 50 Adam steps to
+   256 mean-pooled final features (Q = 960, M = 256): its loss falls and
+   its variance is larger 20 away from the data. The LM launches none of
+   B1-B7.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import inspect
 import json
@@ -193,6 +213,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint.manager import flatten_with_keys  # noqa: E402
@@ -205,7 +226,7 @@ from repro_torch.kernels import kfu as kf  # noqa: E402
 from repro_torch.kernels import psi1 as p1  # noqa: E402
 from repro_torch.kernels import psi2 as p2  # noqa: E402
 from repro_torch.kernels import suffstats as ss  # noqa: E402
-from repro_torch.optim.adam import flatten, tree_map  # noqa: E402
+from repro_torch.optim.adam import flatten, tree_map, unflatten  # noqa: E402
 from repro_torch.serve import GPServer, StateStore, build_state  # noqa: E402
 from repro_torch import tune  # noqa: E402
 from repro_torch.analysis import kernel_audit, lockdep, trace_check  # noqa: E402
@@ -214,6 +235,13 @@ from repro_torch.launch.roofline import (bound_ms, bwd_bound_ms, kfu_bound_ms,  
                                          psi1_bound_ms, psi1_bwd_bound_ms,
                                          psi2_bound_ms, psi2_bwd_bound_ms)
 from repro_torch.tune import autotune, search  # noqa: E402
+from repro_torch.configs import ShapeCell, get_config, get_smoke_config  # noqa: E402
+from repro_torch.core import gp_head  # noqa: E402
+from repro_torch.data import TokenStream  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.models import model_zoo, transformer  # noqa: E402
+from repro_torch.runtime import TrainLoop  # noqa: E402
 
 SEED = 0
 PAPER = (1_000_000, 100, 1, 3)  # N, M, Q, D: paper §4 (Q=1, M=100, D=3, 1e6 points)
@@ -2215,8 +2243,9 @@ ANALYSIS_CHUNK = 4096  # backend="pallas" streams its chunks
 # the kernel audit's problems: both kernel shapes and the dry run's
 AUDIT_SHAPES = KERNEL_SHAPES + ((16_777_216, 128, 1, 3),)
 # (M, Q, D) of the dry run and of the second kernel shape, where B2's
-# per-(pair block, point) sums (fault C6) come within 4x of an (N, M)
-# buffer: the trace check there must flag those sums and nothing else
+# per-(pair block, point) sums over all of N came within 4x of an (N, M)
+# buffer (fault C6, repaired: one chunk's sums, about N (1 + 3Q)): the
+# trace check holds there too
 SCALING_C6 = ((128, 1, 3), (256, 4, 5))
 
 
@@ -2284,53 +2313,35 @@ def _gplvm_case(N: int, M: int, Q: int, D: int, backend: str, chunk):
 
 
 def c6_scratch_shape(N: int, M: int, Q: int) -> tuple:
-    """The shape of B2's per-(pair block, point) sums (fault C6) on this
-    card: (pair blocks, 1 + 3Q, N)."""
-    geo, _ = ss.card_geometry("suffstats_bwd", torch.empty(1, Q, device="cuda"))
-    return (ss.pair_blocks(M, geo.pairs_per_block), 1 + 3 * Q, N)
+    """The shape of B2's per-point sums on this card in float32: one
+    chunk's (pair blocks, 1 + 3Q, chunk), `suffstats.bwd_scratch`."""
+    geo, sms = ss.card_geometry("suffstats_bwd", torch.empty(1, Q, device="cuda"))
+    P2 = ss.bwd_pair_split(N, M, geo, sms).count
+    return ss.bwd_scratch(N, M, Q, geo, P2)[0]
 
 
 def scaling_on_card() -> None:
     """`assert_no_scaling(worse_than="N*M")` on the GP-LVM loss and its
     gradients through "fused" (B1, B2) and "pallas" (B5, B3, B6, B4 over
-    chunks) on CUDA tensors at N and 2N, at the paper's M and Q. Then the
-    fused path at the dry run's M and at M = 256, Q = 4, where the check
-    must fail on B2's per-(pair block, point) sums alone (fault C6: they
-    grow as N (pair blocks) (1 + 3Q)): any other violator fails the phase,
-    and so does a run where those sums no longer violate (C6 repaired: hold
-    these cases plainly then)."""
+    chunks) on CUDA tensors at N and 2N, at the paper's M and Q; then the
+    fused path at the dry run's M and at M = 256, Q = 4 (SCALING_C6), where
+    B2's per-point sums over all of N once violated (fault C6)."""
     M, Q, D = PAPER[1:]
-    for backend, chunk in (("fused", None), ("pallas", ANALYSIS_CHUNK)):
-        loss, args, sizes = _gplvm_case(ANALYSIS_N, M, Q, D, backend, chunk)
+    cases = [(M, Q, D, "fused", None), (M, Q, D, "pallas", ANALYSIS_CHUNK)]
+    cases += [(m, q, d, "fused", None) for m, q, d in SCALING_C6]
+    for m, q, d, backend, chunk in cases:
+        loss, args, sizes = _gplvm_case(ANALYSIS_N, m, q, d, backend, chunk)
         try:
             rep = trace_check.assert_no_scaling(loss, *args, axis="N", worse_than="N*M",
                                                 sizes=sizes, backward=True)
         except trace_check.ScalingViolation as e:
-            raise SmokeFailure(f"trace check, GP-LVM {backend} on the card: {e}") from e
+            raise SmokeFailure(f"trace check, GP-LVM {backend} M={m} Q={q} on the card: "
+                               f"{e}") from e
         log(f"[analysis] trace GP-LVM {backend} loss and gradients, cuda, N={ANALYSIS_N} "
-            f"and {2 * ANALYSIS_N}, M={M}, Q={Q}: {len(rep.entries)} call sites, worst "
-            f"{rep.worst.describe()}; below O(N*M) with margin 4")
-    for m, q, d in SCALING_C6:
-        loss, args, sizes = _gplvm_case(ANALYSIS_N, m, q, d, "fused", None)
-        scratch = c6_scratch_shape(ANALYSIS_N, m, q)
-        try:
-            trace_check.assert_no_scaling(loss, *args, axis="N", worse_than="N*M",
-                                          sizes=sizes, backward=True)
-        except trace_check.ScalingViolation as e:
-            violations = e.violations
-        else:
-            violations = []
-        c6 = [v for v in violations
-              if v.shape == scratch and v.source.endswith("in suffstats_bwd_cuda")]
-        other = [v for v in violations if v not in c6]
-        for v in violations:
-            log(f"[analysis] trace GP-LVM fused, cuda, M={m}, Q={q}: violation "
-                f"{'(C6) ' if v in c6 else ''}{v.describe()} (coefficient {v.coeff:.0f} a "
-                f"point against M = {m})")
-        check(not other, f"trace check, GP-LVM fused M={m} Q={q}: violators besides "
-              f"C6's scratch: {[v.describe() for v in other]}")
-        check(bool(c6), f"trace check, GP-LVM fused M={m} Q={q}: B2's point sums "
-              f"{scratch} no longer violate O(N*M) (C6 repaired?): hold this case plainly")
+            f"and {2 * ANALYSIS_N}, M={m}, Q={q}: {len(rep.entries)} call sites, worst "
+            f"{rep.worst.describe()}; below O(N*M) with margin 4"
+            + (f"; B2's point sums {c6_scratch_shape(ANALYSIS_N, m, q)} at N={ANALYSIS_N}"
+               if backend == "fused" else ""))
 
 
 def phase_analysis() -> None:
@@ -2355,10 +2366,15 @@ DRYRUN_TOL = 1e-5  # float32 loss vs the facade's, relative
 # collapsed bound (the lengthscale's 1.0e-3 apart at most on an H100 80GB
 # HBM3 at 700 W; 5x that is held), float64 holds mesh='s tolerances
 DRYRUN_PLAIN_TOL = {torch.float64: (1e-10, 1e-8), torch.float32: (1e-5, 5e-3)}
-# elements a point the step may hold beyond the state and B2's point sums
-# (the scratch of fault C6, counted in full): the cotangents dmu, dS, dY
-# (2Q + D), S = exp(q_logS), the KL's and Adam's per-leaf temporaries
-DRYRUN_POINT_SLACK = 16
+# elements a point the step may hold beyond the state and B2's per-point
+# sums (one chunk's, counted in full): the cotangents dmu, dS, dY
+# (2Q + D), S = exp(q_logS), the KL's and Adam's per-leaf temporaries,
+# which never all live at once (7.23 a point at the peak on an H100 80GB
+# HBM3 at 700 W, PR 20's smoke20a.log): 8
+DRYRUN_POINT_SLACK = 8
+# the dry run's peak, whatever the bound above says (1.390 GiB read with
+# the per-point scratch of one chunk, 3.379 GiB before it)
+DRYRUN_PEAK_MAX = int(1.6 * 2**30)
 DRYRUN_TIMEOUT_S = 600
 
 
@@ -2446,8 +2462,8 @@ def phase_dryrun() -> dict:
     W = 1, float32, "fused", in a process of its own, as a user runs it: the
     losses finite and falling at every step, each step one B1 and one B2
     launch and no other kernel, the peak device memory under the state plus
-    B2's per-(pair block, point) sums (fault C6's scratch) plus
-    DRYRUN_POINT_SLACK elements a point; B1 and B2 timed alone at that
+    B2's per-point sums (one chunk's) plus DRYRUN_POINT_SLACK elements a
+    point, and under DRYRUN_PEAK_MAX; B1 and B2 timed alone at that
     shape; on the draw's first DRYRUN_PREFIX points, `dryrun_prefix_checks`.
     Returns the record and the child's launches (this process's launches
     count towards no main path)."""
@@ -2482,9 +2498,11 @@ def phase_dryrun() -> dict:
     bound = rec["memory"]["state_bytes"] + point_sums + DRYRUN_POINT_SLACK * N * 4
     peak = rec["memory"]["peak_bytes"]
     log(f"[dryrun] peak {peak} bytes ({peak / 2**30:.3f} GiB): state "
-        f"{rec['memory']['state_bytes']} + B2's point sums (C6) {point_sums} + "
-        f"{DRYRUN_POINT_SLACK} elements a point = bound {bound} bytes")
+        f"{rec['memory']['state_bytes']} + B2's point sums {point_sums} + "
+        f"{DRYRUN_POINT_SLACK} elements a point = bound {bound} bytes (at most "
+        f"{DRYRUN_PEAK_MAX} bytes)")
     check(peak <= bound, f"dry run peak {peak} bytes above its bound {bound}")
+    check(peak <= DRYRUN_PEAK_MAX, f"dry run peak {peak} bytes above {DRYRUN_PEAK_MAX}")
     b1, b2 = dryrun_kernel_ms(N, M, Q, D)
     log(f"[dryrun] B1 {b1:.3f} ms, B2 {b2:.3f} ms one launch each at N={N} M={M}; the "
         f"rest of the {rec['step_ms']:.3f} ms step {rec['step_ms'] - b1 - b2:.3f} ms")
@@ -2520,14 +2538,22 @@ def profile_step(model, what: str, top: int = 6) -> None:
     the device time of each kernel name (the `top` largest), their sum
     against the step's wall time (host clock to a synchronize, inflated by
     the profiler's own host work), and so the device's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
     config = AdamConfig(lr=1e-2, clip_norm=None, weight_decay=0.0)
     params, state = model.params, adam_init(model.params, config)
 
     def step():
         _, grads = inference.value_and_grad(model._loss, params, model._data)
         adam_update(grads, state, params, config)
+
+    profile_fn(step, what, top)
+
+
+def profile_fn(step, what: str, top: int = 6, tag: str = "[profile]") -> None:
+    """`step()` once untimed, then once under `torch.profiler`: each
+    kernel name's device time (the `top` largest), their sum against the
+    wall time (host clock to a synchronize, inflated by the profiler's own
+    host work), and so the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
@@ -2542,12 +2568,12 @@ def profile_step(model, what: str, top: int = 6) -> None:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     if not by_name:
-        log(f"[profile] {what}: the profiler recorded no device time; not measured")
+        log(f"{tag} {what}: the profiler recorded no device time; not measured")
         return
-    log(f"[profile] {what}: device busy {busy:.3f} ms of a {wall:.3f} ms profiled step "
+    log(f"{tag} {what}: device busy {busy:.3f} ms of a {wall:.3f} ms profiled step "
         f"({len(by_name)} kernel names; idle share {100 * (1 - busy / wall):.1f} %)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        log(f"[profile]   {ms:8.3f} ms  {name[:110]}")
+        log(f"{tag}   {ms:8.3f} ms  {name[:110]}")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
@@ -2577,9 +2603,13 @@ def exp_slots(lib: str, N: int, M: int, Q: int, D: int, dtype) -> str:
     32-row tiles per 8-column d tile; B2's point pass evaluates M and its dZ
     pass whole 32-row tiles."""
     geo, sms = ss.card_geometry(lib, torch.empty(1, Q, device="cuda", dtype=dtype))
-    P = ss.psi2_splits(N, M, geo, sms)
-    psi2 = (ss.evaluated_slots(M, geo.pairs_per_block)
-            * ss.evaluated_rows(N, P, geo.run, geo.group) / N)
+    if lib in ("suffstats_bwd", "psi2_bwd"):  # the reverse passes split each chunk
+        P = ss.bwd_pair_split(N, M, geo, sms).count
+        chunks = ss.chunk_bounds(N, ss.point_chunk(N, M, geo.pairs_per_block))
+    else:
+        P, chunks = ss.psi2_splits(N, M, geo, sms), [(0, N)]
+    rows = sum(ss.evaluated_rows(hi - lo, P, geo.run, geo.group) for lo, hi in chunks)
+    psi2 = ss.evaluated_slots(M, geo.pairs_per_block) * rows / N
     psi1 = {"suffstats_fwd": -(-M // ss.Y_TILE_M) * ss.Y_TILE_M * -(-D // ss.Y_TILE_D),
             "suffstats_bwd": M + -(-M // ss.Z_TILE_M) * ss.Z_TILE_M}.get(lib, 0)
     blocks = ss.pair_blocks(M, geo.pairs_per_block)
@@ -2587,7 +2617,9 @@ def exp_slots(lib: str, N: int, M: int, Q: int, D: int, dtype) -> str:
             f"exponentials a point for the {ss.pair_count(M)} pairs it needs "
             f"({100 * (psi2 / ss.pair_count(M) - 1):.2f} % more)"
             + (f", psi1 {psi1} for the {M} it needs" if psi1 else "")
-            + f"; grid {blocks} pair blocks x {P} N-splits, {geo.blocks_per_sm} resident "
+            + f"; grid {blocks} pair blocks x {P} N-splits"
+            + (f" in each of {len(chunks)} chunks" if len(chunks) > 1 else "")
+            + f", {geo.blocks_per_sm} resident "
             f"a multiprocessor x {sms}")
 
 
@@ -2727,6 +2759,344 @@ def phase_times(trained: dict, pallas: dict, sgpr: dict, data: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dense LM side at smollm-360m's full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "smollm-360m"
+# serve: batch, prompt, new tokens; numerics: batch, sequence (float32 vs
+# float64) and the prompt of decode-vs-forward; train: batch, sequence,
+# steps before and after the resume; the head: sequences pooled, their
+# length, inducing points, Adam steps
+LM_SERVE = (4, 512, 64)
+LM_NUMERICS = (2, 256, 128)
+LM_TRAIN = (8, 2048, 5, 8)
+LM_HEAD = (256, 256, 256, 50)
+# float32 loss and gradients of the full-width model (TF32 off) against
+# `plain_lm_loss_f64`, a float64 forward written apart from the port that
+# downcasts nowhere (the port's rmsnorm, RoPE, attention scores and PV and
+# its cross-entropy run float32 whatever the parameters' dtype, as the
+# reference's do, so the port's own model in float64 is no float64
+# reference). u = 2^-24. The hidden state's relative error after 32 layers,
+# each adding a few roundings of 960- and 2560-term products, is ~1e1 u;
+# a logit (|.| <~ 10) errs by ~1e-5 at most, and the loss, a mean of 510
+# log-sum-exps of such errors, by far less relatively: 1e-5. A gradient
+# leaf sums 510 positions' products whose own error is ~1e2 u, held
+# relative to its largest entry: ~1e-5; the limit leaves ten times that
+# (the port's float64 model read 3.4e-6 worst, PR 20's call 16): 1e-4
+LM_F64_TOL = (1e-5, 1e-4)
+# the resumed steps' losses against the uninterrupted run's
+LM_RESUME_TOL = 1e-3
+# the first loss against `expected_first_loss` (its spread over 16,384
+# positions is ~1e-3; the residual-growth estimate is the looser part)
+LM_FIRST_LOSS_TOL = 0.1
+
+
+def expected_first_loss(cfg) -> float:
+    """The cross-entropy at init on random tokens. The tied logits
+    h . t_v, with h rmsnorm'd (|h|^2 = d) and table entries N(0, 1/d), are
+    ~N(0, 1) for every id but the input token's own, so with the gold
+    logit's mean 0 the loss is E[logsumexp] = ln(V e^(1/2) + e^z): ln V +
+    1/2 plus the input token's own logit z. That one is
+    d / |x| = sqrt(d / (1 + r)): the residual stream x starts at the
+    embedding (sqrt(d) t_in, |.|^2 = d) and each of the L layers adds an
+    MLP output of E[silu(a)^2 b^2] = 0.3558 a coordinate (a, b ~ N(0, 1);
+    w_down at f^-1/2), so r = 0.3558 L; attention outputs average many
+    values and add little. smollm-360m: z = 8.80, 11.382 (ln V + 1/2 =
+    11.303); its smoke config (d = 60, L = 3, V = 512): 6.969."""
+    z = math.sqrt(cfg.d_model / (1.0 + 0.35578 * cfg.num_layers))
+    V = cfg.vocab_size
+    return math.log(V) + 0.5 + math.log1p(math.exp(z) / (V * math.exp(0.5)))
+
+
+def recording(step_fn, losses: list):
+    """`step_fn` noting each step's loss (as a float) in `losses`."""
+    def step(params, opt_state, batch):
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        return params, opt_state, metrics
+    return step
+
+
+class OneBatch:
+    """A TokenStream that yields its batch 0 at every step: its position
+    advances and checkpoints as the stream's, so a resumed loop reads the
+    same position it was saved at."""
+
+    def __init__(self, stream):
+        self.stream = stream
+        self.batch0 = stream.batch(0)
+
+    def next(self):
+        self.stream.state.step += 1
+        return self.batch0
+
+    def checkpoint_state(self):
+        return self.stream.checkpoint_state()
+
+    def restore_state(self, st):
+        self.stream.restore_state(st)
+
+
+def _reset_peak(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gib(dev: torch.device) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+
+
+def _pooled_features(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean over the sequence of the final (normed) hidden states, float32."""
+    with torch.no_grad():
+        x = transformer.embed_lookup(params["embed"], tokens, cfg)
+        B, S = tokens.shape
+        pos = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+        x, _, _ = transformer._backbone(params, x, pos, cfg, mode="train", states=None,
+                                        cur_pos=None)
+    return x.float().mean(dim=1)
+
+
+def lm_serve_part(cfg, preset: str, params, dev, sizes) -> dict:
+    B, S, new = sizes
+    cold = lm_serve.serve(LM_ARCH, preset, params=params, batch=B, prompt_len=S,
+                          new_tokens=new, device=dev)
+    _reset_peak(dev)
+    r = lm_serve.serve(LM_ARCH, preset, params=params, batch=B, prompt_len=S,
+                       new_tokens=new, device=dev)
+    peak = _peak_gib(dev)
+    V = cfg.vocab_size
+    for name, lg in (("prefill", r.prefill_logits), ("last decode", r.last_logits)):
+        check(bool(torch.isfinite(lg[:, :V]).all()), f"[lm] serve: {name} logits not finite")
+        check(bool((lg[:, V:] < -1e29).all()), f"[lm] serve: {name} padded ids not masked")
+    check(tuple(r.tokens.shape) == (B, new) and int(r.tokens.max()) < V,
+          f"[lm] serve: tokens {tuple(r.tokens.shape)}")
+    check(torch.equal(r.tokens, cold.tokens), "[lm] serve: two greedy runs disagree")
+    if dev.type == "cuda":
+        model = model_zoo.build(cfg)
+        with torch.no_grad():
+            _, states = model.prefill(params, {"tokens": r.tokens}, total_slots=new + 2)
+            profile_fn(lambda: model.decode_step(params, r.tokens[:, -1:], new, states),
+                       f"decode step B={B}", top=5, tag="[lm] profile")
+        del states
+    log(f"[lm] serve {cfg.name} ({sum(t.numel() for t in flatten(params)[1]):,} parameters, "
+        f"{cfg.param_dtype}): B={B} x {S} prompt + {new} new tokens greedy; prefill "
+        f"{r.prefill_s * 1e3:.1f} ms ({r.prefill_tok_s:.0f} tok/s; cold {cold.prefill_s * 1e3:.1f} "
+        f"ms), decode {r.decode_tok_s:.1f} tok/s ({r.decode_s / new * 1e3:.2f} ms a step), peak "
+        f"{peak:.3f} GiB; padded ids {cfg.padded_vocab() - V} (masked < -1e29); sample "
+        f"{r.tokens[0, :12].tolist()}")
+    return {"prefill_ms": r.prefill_s * 1e3, "decode_tok_s": r.decode_tok_s, "peak_gib": peak}
+
+
+def plain_lm_loss_f64(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+    """The dense decoder's next-token loss in float64 throughout, written
+    apart from `models/`: embedding x sqrt(d), per layer a pre-norm GQA
+    attention with RoPE (full causal) and a pre-norm SwiGLU MLP, the final
+    norm, tied logits over the real vocabulary. `params` is the port's
+    tree (any dtype), read as float64."""
+    check(cfg.tie_embeddings and cfg.act == "swiglu" and set(cfg.layer_windows()) == {-1},
+          f"[lm] the plain float64 forward covers tied, SwiGLU, full-causal configs: {cfg.name}")
+    eps, d, V = cfg.norm_eps, cfg.d_model, cfg.vocab_size
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    B, S = tokens.shape
+
+    def norm(p, x):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * p["scale"].double()
+
+    pos = torch.arange(S, dtype=torch.float64, device=tokens.device)
+    inv = 1.0 / cfg.rope_theta ** (torch.arange(0, hd, 2, dtype=torch.float64,
+                                                device=tokens.device) / hd)
+    ang = pos[:, None] * inv  # (S, hd/2)
+    cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+
+    def rope(t):  # (B, S, heads, hd)
+        a, b = t[..., :hd // 2], t[..., hd // 2:]
+        return torch.cat([a * cos - b * sin, b * cos + a * sin], dim=-1)
+
+    causal = torch.ones(S, S, dtype=torch.bool, device=tokens.device).tril()
+    table = params["embed"]["table"].double()
+    x = table[tokens] * d**0.5
+    for si, seg in enumerate(transformer.segments(cfg)):
+        for r in range(seg.repeat):
+            for leaf in params[f"seg{si}"]:
+                lp = tree_map(lambda t: t[r], leaf)
+                h = norm(lp["ln1"], x)
+                a = lp["attn"]
+                q = rope((h @ a["wq"].double()).reshape(B, S, H, hd))
+                k = rope((h @ a["wk"].double()).reshape(B, S, Kv, hd))
+                v = (h @ a["wv"].double()).reshape(B, S, Kv, hd)
+                k = k.repeat_interleave(H // Kv, dim=2)
+                v = v.repeat_interleave(H // Kv, dim=2)
+                sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * hd**-0.5
+                pr = torch.softmax(sc.masked_fill(~causal, float("-inf")), dim=-1)
+                o = torch.einsum("bhqk,bkhd->bqhd", pr, v).reshape(B, S, H * hd)
+                x = x + o @ a["wo"].double()
+                h = norm(lp["ln2"], x)
+                m = lp["mlp"]
+                g = F.silu(h @ m["w_gate"].double()) * (h @ m["w_up"].double())
+                x = x + g @ m["w_down"].double()
+    x = norm(params["final_norm"], x)
+    logits = x[:, :-1] @ table[:V].T  # (B, S - 1, V): the last position has no label
+    return F.cross_entropy(logits.reshape(-1, V), tokens[:, 1:].reshape(-1).long())
+
+
+def lm_numerics_part(cfg, dev, sizes) -> None:
+    """Full width in float32: decode-after-prefill vs the full forward, and
+    the loss and gradients against `plain_lm_loss_f64`."""
+    B, S, P = sizes
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    m32 = model_zoo.build(cfg32)
+    params = m32.init(1, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = model_zoo.make_batch(gen, cfg32, ShapeCell("n", S, B, "train"))["tokens"]
+    with torch.no_grad():
+        full, _ = m32.prefill(params, {"tokens": tokens[:, :P]})
+        _, states = m32.prefill(params, {"tokens": tokens[:, :P - 1]})
+        dec, _ = m32.decode_step(params, tokens[:, P - 1:P], P - 1, states)
+    scale = float(full.abs().max())
+    err = float((full - dec).abs().max())
+    log(f"[lm] float32 decode after a {P - 1}-token prefill vs the {P}-token forward: max "
+        f"err {err:.3e} (bound 1e-3 max(scale {scale:.3f}, 1))")
+    check(err < 1e-3 * max(scale, 1.0), f"[lm] decode vs forward: {err} at scale {scale}")
+    del states
+
+    leaves = [t.detach().clone().requires_grad_() for t in flatten(params)[1]]
+    loss, _ = m32.train_loss(unflatten(params, leaves), {"tokens": tokens})
+    g32 = torch.autograd.grad(loss, leaves)
+    l32 = loss.detach()
+    del leaves, loss
+    leaves = [t.detach().double().requires_grad_() for t in flatten(params)[1]]
+    loss = plain_lm_loss_f64(cfg32, unflatten(params, leaves), tokens)
+    g64 = torch.autograd.grad(loss, leaves)
+    l64 = loss.detach()
+    del leaves, loss
+    lerr = abs(float(l32) - float(l64)) / abs(float(l64))
+    paths = flatten(params)[0]
+    gerr = {path: rel_err(a, b) for path, a, b in zip(paths, g32, g64)}
+    worst = max(gerr, key=gerr.get)
+    log(f"[lm] float32 port vs the plain float64 forward at full width, B={B} S={S}, TF32 "
+        f"off: loss {float(l32)!r} vs {float(l64)!r}, rel err {lerr:.3e} (tol "
+        f"{LM_F64_TOL[0]:g}); gradients: worst {worst} {gerr[worst]:.3e}, median "
+        f"{statistics.median(gerr.values()):.3e} over {len(gerr)} leaves (tol "
+        f"{LM_F64_TOL[1]:g})")
+    check(lerr <= LM_F64_TOL[0], f"[lm] float32 loss vs float64: {lerr}")
+    bad = {k: v for k, v in gerr.items() if not v <= LM_F64_TOL[1]}
+    check(not bad, f"[lm] float32 gradients vs float64: {bad}")
+
+
+def lm_train_part(cfg, preset: str, dev, sizes, ckpt_root: str) -> dict:
+    """Train through launch/train's setup and TrainLoop: the first steps on
+    one repeated batch, a resume from the checkpoint in a fresh loop, and
+    the same steps uninterrupted."""
+    B, S, first, total = sizes
+    s = lm_train.setup(LM_ARCH, preset, batch=B, seq=S, ckpt_dir=f"{ckpt_root}/a",
+                       ckpt_every=0, device=dev, log_every=1)
+    _reset_peak(dev)
+    history: list = []
+    loop = TrainLoop(recording(s.bundle.fn, history), s.params, s.opt, OneBatch(s.data),
+                     s.loop_cfg)
+    loop.run(first)
+    peak = _peak_gib(dev)
+    losses = list(history)
+    step_ms = statistics.median(loop.step_times[1:]) * 1e3
+    expect = expected_first_loss(cfg)
+    log(f"[lm] train {cfg.name} B={B} S={S} ({B * S} tokens a step, {cfg.param_dtype}): losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f"; first vs expected {expect:.4f} (ln V + "
+        f"1/2 = {math.log(cfg.vocab_size) + 0.5:.4f}); step "
+        f"{step_ms:.1f} ms (median of {len(loop.step_times) - 1} after the first; first "
+        f"{loop.step_times[0] * 1e3:.1f}), {B * S / step_ms * 1e3:.0f} tokens/s, peak "
+        f"{peak:.3f} GiB")
+    check(all(math.isfinite(x) for x in losses), f"[lm] train losses {losses}")
+    check(abs(losses[0] - expect) <= LM_FIRST_LOSS_TOL,
+          f"[lm] first loss {losses[0]} vs expected {expect}")
+    check(losses[-1] < losses[0], f"[lm] the loss did not fall: {losses}")
+    saved = {k: [t.clone() for t in flatten(getattr(loop, k))[1]] for k in ("params", "opt_state")}
+
+    # a fresh loop over the same directory resumes at step `first`
+    fresh = lm_train.setup(LM_ARCH, preset, batch=B, seq=S, ckpt_dir=f"{ckpt_root}/a",
+                           ckpt_every=0, device=dev, log_every=1, seed=1)
+    after: list = []
+    resumed = TrainLoop(recording(fresh.bundle.fn, after), fresh.params, fresh.opt,
+                        OneBatch(fresh.data), fresh.loop_cfg)
+    check(resumed.try_resume() and resumed.step == first,
+          f"[lm] resume: step {resumed.step}, want {first}")
+    check(resumed.data.checkpoint_state() == {"seed": 0, "step": first},
+          f"[lm] resume: data position {resumed.data.checkpoint_state()}")
+    for k in saved:
+        same = all(torch.equal(a, b) for a, b in zip(saved[k], flatten(getattr(resumed, k))[1]))
+        check(same, f"[lm] resume: restored {k} differ from the saved ones")
+    del fresh, saved
+    resumed.run(total)
+    del resumed
+    # the same steps without the interruption, checkpointing elsewhere
+    loop.ckpt = type(loop.ckpt)(f"{ckpt_root}/b")
+    loop.run(total)
+    want = history[first:]
+    errs = [abs(a - b) / abs(b) for a, b in zip(after, want)]
+    log(f"[lm] resumed at step {first} (params and moments restored bitwise, data position "
+        f"{first}): steps {first + 1}-{total} losses " + ", ".join(f"{x:.6f}" for x in after)
+        + " vs uninterrupted " + ", ".join(f"{x:.6f}" for x in want)
+        + f"; max rel diff {max(errs):.3e} (tol {LM_RESUME_TOL:g}; bitwise "
+        f"{after == want})")
+    check(len(after) == total - first and max(errs) <= LM_RESUME_TOL,
+          f"[lm] resumed losses {after} vs uninterrupted {want}")
+    if dev.type == "cuda":
+        batch = loop.data.batch0
+        profile_fn(lambda: s.bundle.fn(loop.params, loop.opt_state, batch),
+                   f"train step B={B} S={S}", top=8, tag="[lm] profile")
+    return {"step_ms": step_ms, "tokens_s": B * S / step_ms * 1e3, "peak_gib": peak,
+            "params": loop.params}
+
+
+def lm_head_part(cfg, params, dev, sizes) -> None:
+    """The GP head on the trained model's mean-pooled final features."""
+    n, S, M, steps = sizes
+    stream = TokenStream(cfg, ShapeCell("h", S, n, "train"), seed=2, device=dev)
+    tokens = stream.batch(0)["tokens"]
+    feats = torch.cat([_pooled_features(cfg, params, t) for t in tokens.split(32)])
+    # the target: the sequence's mean token id, centred and scaled (a
+    # property of the input the features may carry)
+    y = tokens.float().mean(dim=1) / cfg.vocab_size
+    y = (y - y.mean()) / y.std()
+    head = gp_head.init_head(0, feats.shape[1], M=M, device=dev)
+    l0 = float(gp_head.head_loss(head, feats, y))
+    head, _ = inference.fit_adam(gp_head.head_loss, head, (feats, y), steps=steps, lr=1e-2)
+    l1 = float(gp_head.head_loss(head, feats, y))
+    near = gp_head.head_predict(head, feats, y, feats[:16])
+    far = gp_head.head_predict(head, feats, y, feats[:16] + 20.0)
+    vn, vf = float(near.var.mean()), float(far.var.mean())
+    log(f"[lm] GP head on {n} mean-pooled features (Q={feats.shape[1]}, M={M}), {steps} Adam "
+        f"steps: loss {l0:.4f} -> {l1:.4f}; predictive variance near the data {vn:.4g}, "
+        f"20 away {vf:.4g}")
+    check(math.isfinite(l1) and l1 < l0, f"[lm] head loss {l0} -> {l1}")
+    check(vn > 0 and vf > vn, f"[lm] head variance near {vn}, far {vf}")
+
+
+def phase_lm(device: str = "cuda", preset: str = "full", serve_sizes=LM_SERVE,
+             numerics_sizes=LM_NUMERICS, train_sizes=LM_TRAIN,
+             head_sizes=LM_HEAD) -> dict:
+    """The dense LM at smollm-360m's full width (`preset="smoke"` and
+    small sizes only to rehearse the phase on the CPU): serve, the float32
+    numerics, train and resume, the GP head. The LM launches none of
+    B1-B7: every counter stays where it was."""
+    dev = torch.device(device)
+    cfg = get_config(LM_ARCH) if preset == "full" else get_smoke_config(LM_ARCH)
+    before = counts()
+    params = model_zoo.build(cfg).init(0, device=dev)
+    served = lm_serve_part(cfg, preset, params, dev, serve_sizes)
+    del params
+    lm_numerics_part(cfg, dev, numerics_sizes)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = lm_train_part(cfg, preset, dev, train_sizes, tmp)
+    lm_head_part(cfg, trained.pop("params"), dev, head_sizes)
+    check(counts() == before, f"[lm] the LM launched a kernel: {counts()} vs {before}")
+    return {**served, **trained}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -2771,6 +3141,7 @@ def main() -> int:
         phase("analysis", phase_analysis)
         dryrun = phase("dry run", phase_dryrun)
         times = phase("times", phase_times, trained, pallas, sgpr, data)
+        phase("lm", phase_lm)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

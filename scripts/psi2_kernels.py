@@ -6,6 +6,8 @@
     python3 scripts/psi2_kernels.py --kernels all   # ... or all seven
     python3 scripts/psi2_kernels.py --time          # ... and time them at the paper's shape
     python3 scripts/psi2_kernels.py --time --clocks # ... with the SM clock and power under each
+    python3 scripts/psi2_kernels.py --kernels B2 --no-check --time \
+        --shape 16777216,128,1,3 --dtypes float32 --reps 5   # ... at another shape
     python3 scripts/psi2_kernels.py --profile       # ... and each wrapper's device time by kernel
     python3 scripts/psi2_kernels.py --sass DIR      # ... and write cuobjdump -sass of each library
     python3 scripts/psi2_kernels.py --src OTHER/src --time --no-check
@@ -21,7 +23,8 @@ output, two launches bitwise equal, at shapes with ragged and odd N and M
 (spans that start on and off 16-byte boundaries), every Q class (1..4, the
 run-time Q, Q > 16) and, for B6, a row of M = 1000 doubles that outgrows a
 stage. --time prints the median of CUDA-event timings of each kernel at
-N = 10^6, M = 100, Q = 1, D = 3 beside the card's name and power limit (a
+N = 10^6, M = 100, Q = 1, D = 3 (or --shape, in --dtypes, --reps timings)
+beside the card's name and power limit (a
 launch's share of 10 back to back, and one launch an event pair, which also
 counts the wrapper's host time), so two checkouts can be timed in one call,
 in turns; --profile the device
@@ -61,7 +64,7 @@ INNER = 10  # back-to-back launches an event pair times
 PAPER = (1_000_000, 100, 1, 3)
 
 
-def inputs(torch, N, M, Q, D, pos_S, seed=0):
+def inputs(torch, N, M, Q, D, pos_S, seed=0, psi1_cotangent=True):
     rng = np.random.default_rng(seed)
     mu = rng.uniform(-3.0, 3.0, (N, Q))
     S = rng.uniform(0.001, 0.05, (N, Q)) if pos_S else np.zeros((N, Q))
@@ -71,8 +74,10 @@ def inputs(torch, N, M, Q, D, pos_S, seed=0):
     arrs = (mu, S, rng.normal(size=(N, D)), rng.uniform(-3.0, 3.0, (M, Q)),
             np.float64(1.3), spread * rng.uniform(0.3, 1.2, Q), rng.normal(size=(M, M)),
             rng.normal(size=(M, D)))
+    # B6's (N, M) cotangent, left out (an empty stand-in) where B6 is not run
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-    g = torch.randn(N, M, generator=gen, device="cuda", dtype=torch.float64)
+    g = (torch.randn(N, M, generator=gen, device="cuda", dtype=torch.float64)
+         if psi1_cotangent else torch.empty(0, device="cuda", dtype=torch.float64))
     return [torch.as_tensor(a, device="cuda") for a in arrs] + [g]
 
 
@@ -156,17 +161,19 @@ def clocks_while(torch, fn, seconds: float = 1.5) -> str:
     return f"SM clock {mhz:.0f} MHz, {watts:.0f} W (median of {len(rows)} samples)"
 
 
-def time_kernels(torch, mods, names, src: Path, clocks: bool) -> None:
-    x64 = inputs(torch, *PAPER, True)
-    for dt in (torch.float32, torch.float64):
+def time_kernels(torch, mods, names, src: Path, clocks: bool, shape=PAPER,
+                 dtypes=("float32", "float64"), reps: int = 20) -> None:
+    N, M, Q, D = shape
+    x64 = inputs(torch, N, M, Q, D, True, psi1_cotangent="B6" in names)
+    for dt in (getattr(torch, d) for d in dtypes):
         x = [a.to(dt) for a in x64]
         for name, (kernel, _, args) in cases(mods, x, names).items():
-            one = cuda_ms(torch, lambda: kernel(*args), reps=20)
-            ms = cuda_ms(torch, lambda: kernel(*args), reps=20, inner=INNER)
+            one = cuda_ms(torch, lambda: kernel(*args), reps=reps)
+            ms = cuda_ms(torch, lambda: kernel(*args), reps=reps, inner=INNER)
             load = f"; {clocks_while(torch, lambda: kernel(*args))}" if clocks else ""
-            print(f"[time] {src} {name} {str(dt)[6:]} N={PAPER[0]} M={PAPER[1]} Q={PAPER[2]} "
-                  f"D={PAPER[3]}: {ms:.3f} ms a launch (median of 20 x {INNER} back to back); "
-                  f"{one:.3f} ms one launch an event pair{load}", flush=True)
+            print(f"[time] {src} {name} {str(dt)[6:]} N={N} M={M} Q={Q} D={D}: {ms:.3f} ms "
+                  f"a launch (median of {reps} x {INNER} back to back); {one:.3f} ms one "
+                  f"launch an event pair{load}", flush=True)
 
 
 def b6_plan(ss, M, Q, itemsize, R, fast):
@@ -296,6 +303,11 @@ def main() -> int:
                     help="comma-separated run lengths to time B6 at")
     ap.add_argument("--b6-shape", default="1000000,100,1",
                     help="N,M,Q of the --b6-runs timings")
+    ap.add_argument("--shape", default=",".join(map(str, PAPER)),
+                    help="N,M,Q,D of the --time timings")
+    ap.add_argument("--dtypes", default="float32,float64",
+                    help="comma-separated dtypes of the --time timings")
+    ap.add_argument("--reps", type=int, default=20, help="timings a --time median takes")
     ap.add_argument("--steps", action="store_true",
                     help="time a training step of each model x backend x dtype")
     args = ap.parse_args()
@@ -331,7 +343,9 @@ def main() -> int:
     if not args.no_check:
         ok = check(torch, mods, names)
     if args.time:
-        time_kernels(torch, mods, names, args.src, args.clocks)
+        time_kernels(torch, mods, names, args.src, args.clocks,
+                     tuple(int(v) for v in args.shape.split(",")),
+                     tuple(args.dtypes.split(",")), args.reps)
     if args.b6_runs:
         ok &= time_b6_runs(torch, mods, [int(r) for r in args.b6_runs.split(",")], args.src,
                            [int(x) for x in args.b6_shape.split(",")])

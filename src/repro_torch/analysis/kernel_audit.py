@@ -36,6 +36,7 @@ memory) and static shared memory, parsed from the `-Xptxas -v` report
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -233,7 +234,15 @@ def kernel_plan(name: str, problem: Problem, dtype, card) -> Plan:
         if lib in ("suffstats_bwd", "psi2_bwd"):
             covers.append(("points of the point pass", _tiles(N, ss.BWD_THREADS), N))
             passes.append(Pass("point", (-(-N // ss.BWD_THREADS),), ss.BWD_THREADS))
-            scratch += size * blocks * (1 + 3 * Q) * N  # the per-point sums `pt`
+            # the pair pass splits each chunk; one chunk's per-point sums
+            # `pt` (the running pair sums between chunks are in the launch
+            # plan's scratch)
+            chunk = ss.point_chunk(N, M, geo.pairs_per_block)
+            covers[0] = (f"N-splits of pass 0 ({counts[0]}) in a chunk",
+                         tuple(ss.split_bounds(chunk, counts[0])), chunk)
+            covers.append((f"chunks of {chunk} points", tuple(ss.chunk_bounds(N, chunk)), N))
+            pt_shape, _ = ss.bwd_scratch(N, M, Q, geo, counts[0])
+            scratch += size * math.prod(pt_shape)
         if lib == "suffstats_fwd":
             covers.append(("inducing points of the psiY tiles", _tiles(M, ss.Y_TILE_M), M))
             covers.append(("outputs of the psiY tiles", _tiles(D, ss.Y_TILE_D), D))

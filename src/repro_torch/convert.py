@@ -7,11 +7,19 @@ module never sees JAX:
     state_from_numpy({"kern", "Z", "log_beta", "stats": {psi0, psi2, psiY,
                       yy, n}, "L", "LA", "Kuu_inv_mean"})
     temporal_state_from_numpy({"kern", "log_beta", "t_last", "m", "P", "n"})
+    lm_tree_from_numpy({"embed": {...}, "final_norm": ..., "seg0": (...), ...})
+    adam_state_from_numpy(step, m, v)
 
 `kern` is any kernel's parameter tree: a leaf kernel's dict of arrays, or
 a composite's dict of part dicts keyed "k0", "k1", ... . Each returns torch
 tensors on `device` (the CUDA device unless ``device="cpu"``), in `dtype`
 when given and in each array's own dtype otherwise.
+
+An LM tree (`models.transformer`'s parameters, its decode states, Adam's
+moments) is nested dicts and tuples of the segments' stacked leaves. A
+bfloat16 array (`np.asarray` of a JAX bfloat16 array is an ml_dtypes one,
+which `torch.from_numpy` rejects) crosses widened to float32, which holds
+every bfloat16 value exactly, and is cast back.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.psi_stats import SuffStats
+from repro_torch.optim.adam import AdamState
 from repro_torch.serve.state import PosteriorState
 from repro_torch.temporal.model import TemporalState
 
@@ -29,13 +38,20 @@ GPLVM_KEYS = ("q_mu", "q_logS")
 
 
 def _tensor(a, dev: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: widened exactly, cast back
+        return torch.from_numpy(arr.astype(np.float32)).to(dev, dtype or torch.bfloat16)
+    return torch.as_tensor(arr, dtype=dtype, device=dev)
 
 
 def _tree(tree, dev: torch.device, dtype: Optional[torch.dtype]):
-    """A nested mapping of arrays as the same nesting of tensors."""
+    """Nested mappings, tuples (NamedTuples too) and lists of arrays as the
+    same nesting of tensors."""
     if isinstance(tree, Mapping):
         return {k: _tree(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        items = [_tree(v, dev, dtype) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     return _tensor(tree, dev, dtype)
 
 
@@ -87,3 +103,18 @@ def temporal_state_from_numpy(fields: Mapping, *, device="cuda",
     _missing(fields, TemporalState._fields, "fields")
     return TemporalState(**{k: _tree(fields[k], dev, dtype)
                             for k in TemporalState._fields})
+
+
+def lm_tree_from_numpy(tree, *, device="cuda", dtype: Optional[torch.dtype] = None):
+    """The reference's LM parameter tree (nested dicts and tuples of numpy
+    arrays, bfloat16 ones included) as the same nesting of tensors, each in
+    its own dtype (or `dtype`)."""
+    return _tree(tree, _device.resolve(device), dtype)
+
+
+def adam_state_from_numpy(step, m, v, *, device="cuda") -> AdamState:
+    """The reference's `AdamState(step, m, v)` (numpy leaves) as the port's:
+    step an int32 scalar, m and v trees in their own dtypes."""
+    dev = _device.resolve(device)
+    return AdamState(torch.as_tensor(np.array(step), dtype=torch.int32, device=dev),
+                     _tree(m, dev, None), _tree(v, dev, None))

@@ -1,5 +1,5 @@
-"""Synthetic data for the examples and checks (counterpart of
+"""Synthetic data for the examples, checks and launchers (counterpart of
 `repro.data`)."""
-from repro_torch.data.synthetic import gplvm_synthetic
+from repro_torch.data.synthetic import TokenStream, TokenStreamState, gplvm_synthetic
 
-__all__ = ["gplvm_synthetic"]
+__all__ = ["TokenStream", "TokenStreamState", "gplvm_synthetic"]

@@ -1,13 +1,21 @@
-"""The paper's synthetic GP-LVM dataset (§4), counterpart of
-`repro.data.synthetic.gplvm_synthetic`.
+"""Synthetic data (counterpart of `repro.data.synthetic`): the paper's
+GP-LVM dataset (§4) and a checkpointable LM token stream.
 
-N 1-D latent points are mapped to D dimensions by function draws under an
-RBF kernel: an exact GP draw (a float64 Cholesky) up to 4,096 points, and
-random Fourier features (Rahimi & Recht) beyond. The numbers come from a
-numpy generator seeded by `seed`, so the draw is not the JAX package's
-(which comes from `jax.random`), only one of the same distribution.
+GP dataset: N 1-D latent points are mapped to D dimensions by function
+draws under an RBF kernel: an exact GP draw (a float64 Cholesky) up to
+4,096 points, and random Fourier features (Rahimi & Recht) beyond. The
+numbers come from a numpy generator seeded by `seed`, so the draw is not
+the JAX package's (which comes from `jax.random`), only one of the same
+distribution.
+
+LM stream: an infinite deterministic token stream. Batch t is a pure
+function of (seed, t), so the iterator's state is one integer and a
+restart from a checkpoint reproduces the stream exactly.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -39,3 +47,66 @@ def gplvm_synthetic(seed: int, N: int, D: int = 3, Q: int = 1,
     Y = F + noise_std * rng.standard_normal((N, D))
     return (torch.as_tensor(X, dtype=dtype, device=dev),
             torch.as_tensor(Y, dtype=dtype, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# LM token pipeline
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TokenStreamState:
+    seed: int
+    step: int  # the only mutable state — exactly checkpointable
+
+
+class TokenStream:
+    """Deterministic synthetic LM batches: batch(t) = f(seed, t).
+
+    Each batch comes from a fresh `torch.Generator` on `device`, seeded
+    from (seed, t), so a batch needs no state but its index. The tokens
+    cannot be the reference's bit for bit (`jax.random` has no torch
+    counterpart): a test that holds the two packages to each other feeds
+    both the same numpy tokens. `checkpoint_state` / `restore_state` keep
+    the reference's {"seed", "step"} dict, so a reference checkpoint's
+    data position restores here. With a real corpus, per-host reads would
+    live here behind the same interface.
+    """
+
+    def __init__(self, cfg, shape, *, seed: int = 0, batch: Optional[int] = None,
+                 device="cuda"):
+        from repro_torch.models.model_zoo import batch_shapes
+
+        self.spec = batch_shapes(cfg, shape, batch)
+        self.vocab = cfg.vocab_size
+        self.state = TokenStreamState(seed=seed, step=0)
+        self.device = _device.resolve(device)
+
+    def checkpoint_state(self) -> Dict[str, int]:
+        return dataclasses.asdict(self.state)
+
+    def restore_state(self, st: Dict[str, int]) -> None:
+        self.state = TokenStreamState(seed=int(st["seed"]), step=int(st["step"]))
+
+    def batch(self, t: int) -> Dict[str, torch.Tensor]:
+        """Batch t of this stream (its position is not touched)."""
+        seed = int(np.random.SeedSequence([self.state.seed, t]).generate_state(1)[0])
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        out = {}
+        for name, (shp, dtype) in self.spec.items():
+            if dtype == torch.int32:
+                out[name] = torch.randint(0, self.vocab, shp, generator=gen, dtype=dtype,
+                                          device=self.device)
+            else:
+                out[name] = torch.randn(shp, generator=gen, dtype=torch.float32,
+                                        device=self.device).to(dtype)
+        return out
+
+    def next(self) -> Dict[str, torch.Tensor]:
+        out = self.batch(self.state.step)
+        self.state.step += 1
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        while True:
+            yield self.next()

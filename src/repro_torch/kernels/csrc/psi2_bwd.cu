@@ -18,7 +18,7 @@
 //       (the global sums of eq. (18))
 //     t = sum_{a<=b} Gw_ab E_ab, sd = sum Gw E (mu - zbar),
 //     sv = sum Gw E (mu - zbar)^2, tz = sum Gw E (z_a - z_b)^2
-//       (per point, as partials per pair block)
+//       (per point, as partials per pair block, one chunk of N at a time)
 //   point pass, per datapoint n (eq. (16)-(17), (19)-(20)):
 //     dmu = -2 r sd,  dS = -r t + 2 r^2 sv,
 //     dl (eq. (20)) and dv_raw = 2 t, summed over the points
@@ -39,6 +39,8 @@
 //     pairs a <= b, at most 31 slots a point wasted); per-pair sums in
 //     registers, per-point sums reduced across the block in a fixed order
 //     and written per (pair block, point), then summed per point in double;
+//     both passes run chunk by chunk over N (reverse.cuh: run_chunks), so
+//     the per-point scratch holds one chunk, about N (1 + 3Q) sums in all;
 //   * base-2 exponentials: MUFU.EX2 in float, a table-driven 2^x for
 //     x <= 0 in double;
 //   * the TPU kernel carries dZ, dv and dl across its sequential grid; here
@@ -56,12 +58,11 @@ namespace {
 template <typename T>
 cudaError_t psi2_bwd(const T* mu, const T* S, const T* Z, const T* l2,
                      const T* ls, const T* Gw, T* dmu, T* dS, T* point_part,
-                     T* point_sum, T* pair_part, T* pair_sum, T* pt, int N, int M,
-                     int Q, int P2, int NB, cudaStream_t stream) {
-  cudaError_t err = pair_pass<T>(P2, stream, mu, S, Z, l2, Gw, pair_part, pt, N, M, Q);
-  if (err != cudaSuccess) return err;
-  err = point_pass<T, false>(NB, stream, mu, S, nullptr, Z, l2, ls, nullptr, pt, dmu,
-                             dS, nullptr, point_part, N, M, Q, 0);
+                     T* point_sum, T* pair_part, T* pair_sum, double* carry, T* pt,
+                     int N, int M, int Q, int P2, int NB, int CN, cudaStream_t stream) {
+  cudaError_t err = run_chunks<T, false>(P2, CN, stream, mu, S, nullptr, Z, l2, ls, Gw,
+                                         nullptr, pair_part, carry, pt, dmu, dS, nullptr,
+                                         point_part, N, M, Q, 0);
   if (err != cudaSuccess) return err;
   err = reduce_partials<T>(point_part, point_sum, NB, 1, 1, Q + 1, stream);
   if (err != cudaSuccess) return err;
@@ -73,20 +74,23 @@ cudaError_t psi2_bwd(const T* mu, const T* S, const T* Z, const T* l2,
 // Plain C interface (bound with ctypes). Pointers are device pointers of
 // contiguous row-major arrays: mu, S (N, Q); Z (M, Q); l2, ls (Q); Gw
 // (M, M); outputs dmu, dS (N, Q); scratch point_part (NB, Q + 1), pair_part
-// (P2, Q + 1, M (M + 1) / 2), pt (pair blocks, 1 + 3Q, N); sums point_sum
+// (P2, Q + 1, M (M + 1) / 2), carry (2, P2, Q + 1, M (M + 1) / 2) doubles
+// (null when CN >= N), pt (pair blocks, 1 + 3Q, min(CN, N)); sums point_sum
 // (Q + 1) = [dl_point, dv_raw], pair_sum (Q + 1, M, M) = [P, A_1..A_Q]. NB
-// must be ceil(N / 256) and the pair-block count ceil(M (M + 1) / 2 / pairs
-// per block) with psi2_bwd_geometry's pairs per block. Launches on
+// must be ceil(N / 256), CN (points a chunk) a multiple of 256 or >= N, and
+// the pair-block count ceil(M (M + 1) / 2 / pairs per block) with
+// psi2_bwd_geometry's pairs per block. Launches on
 // `stream`, does not synchronize, returns the first cudaGetLastError() that
 // is not cudaSuccess (0 on success).
 #define PSI2_BWD_ENTRY(NAME, T)                                                    \
   extern "C" int NAME(const T* mu, const T* S, const T* Z, const T* l2, const T* ls, \
                       const T* Gw, T* dmu, T* dS, T* point_part, T* point_sum,     \
-                      T* pair_part, T* pair_sum, T* pt, int N, int M, int Q,       \
-                      int P2, int NB, void* stream) {                              \
+                      T* pair_part, T* pair_sum, double* carry, T* pt, int N,      \
+                      int M, int Q, int P2, int NB, int CN, void* stream) {        \
     return static_cast<int>(psi2_bwd<T>(mu, S, Z, l2, ls, Gw, dmu, dS, point_part, \
-                                        point_sum, pair_part, pair_sum, pt, N, M,  \
-                                        Q, P2, NB, static_cast<cudaStream_t>(stream))); \
+                                        point_sum, pair_part, pair_sum, carry, pt, \
+                                        N, M, Q, P2, NB, CN,                       \
+                                        static_cast<cudaStream_t>(stream)));       \
   }
 
 PSI2_BWD_ENTRY(psi2_bwd_f32, float)

@@ -4,8 +4,8 @@
 // numbers are those of docs/derivations/suffstats_vjp.md; suffstats_bwd.cu's
 // header sets out what each pass computes and why it is laid out so.
 //
-//   pair pass, the forward's packed pair blocks x N-splits: evaluates each
-//     E_nab once and feeds both
+//   pair pass, the forward's packed pair blocks x N-splits over one chunk
+//     of the points: evaluates each E_nab once and feeds both
 //       the per-pair sums P_ab = sum_n E_nab and A_abq = sum_n E_nab r_nq
 //       (mu_nq - zbar_abq), kept in the thread's registers over its points,
 //       from which the caller's O(M^2 Q) epilogue forms the psi2 part of dZ;
@@ -13,10 +13,22 @@
 //       t = sum T, sd_q = sum T d_q, sv_q = sum T d_q^2 and
 //       tz_q = sum T (z_aq - z_bq)^2 (d = mu - zbar), reduced across the
 //       block's threads in a fixed order and written per (pair block,
-//       point);
-//   point pass, one thread per datapoint: sums a point's pair-block partials
-//     in a fixed order, and forms dmu, dS (and dY with the psi1 branch) and
-//     block partials of dl and v dv.
+//       point of the chunk);
+//   point pass, one thread per datapoint of the chunk: sums a point's
+//     pair-block partials in a fixed order, and forms dmu, dS (and dY with
+//     the psi1 branch) and block partials of dl and v dv.
+//
+// The caller runs the two passes chunk by chunk over N (run_chunks), so the
+// per-point scratch holds one chunk's (pair blocks, 1 + 3Q, chunk) sums; with
+// chunks of about N / pair blocks points that is about N (1 + 3Q) sums
+// whatever M is. The pair sums carry across chunks: each split's running
+// totals (and their compensation terms) are kept in double between chunks,
+// and a chunk's own two-level total is merged into them in its epilogue
+// (carry_total), so the main loop is the single launch's, registers
+// included (totals loaded before the loop take the Q = 1 pair kernel to
+// 127 / 171 registers, float / double, a resident block a multiprocessor
+// fewer). The order of every sum stays fixed by the shapes (bitwise
+// repeatable).
 //
 // Q = 1..4 are compile-time instances; any larger Q that shared memory
 // holds runs the run-time-Q ones: the pair pass sums A and the per-point
@@ -112,16 +124,67 @@ __device__ __forceinline__ void store_point_sums(const T* s_w, T* pt, int pb,
 // pair pass
 // ---------------------------------------------------------------------------
 
-// grid (pair blocks, P N-splits). pair_part: (P, 1 + Q, M (M + 1) / 2)
-// packed partials of [P, A_1..A_Q]; pt: (pair blocks, 1 + 3Q, N) per-point
-// sums [t, sd_1..Q, sv_1..Q, tz_1..Q]. Compile-time Q: zbar, (z_a - z_b)^2,
-// Gw and the pair sums in registers.
+// where split p's running pair sums wait between chunks: acc and its
+// compensation term, each (P, 1 + Q, npairs), in double
+struct Carry {
+  double* acc;
+  double* err;
+  bool in;   // this chunk continues the totals of an earlier one
+  bool out;  // a later chunk continues this one's totals
+};
+
+__device__ __forceinline__ Carry split_carry(double* carry, int P, int p, int Q,
+                                             int npairs, int carry_in, int carry_out) {
+  if (carry == nullptr) return Carry{nullptr, nullptr, false, false};  // a lone chunk
+  const size_t plane = static_cast<size_t>(P) * (1 + Q) * npairs;
+  double* acc = carry + static_cast<size_t>(p) * (1 + Q) * npairs;
+  return Carry{acc, acc + plane, carry_in != 0, carry_out != 0};
+}
+
+// Entry i of a split's sums after this chunk: the chunk's total (acc, err)
+// added to the running total of the earlier chunks, if any, compensated in
+// the double instance; then kept in carry for a later chunk (returns
+// false), or left in (acc, err) for the caller to write (returns true).
+template <typename T>
+__device__ __forceinline__ bool carry_total(const Carry& cy, size_t i, double& acc,
+                                            double& err) {
+  if (cy.in) {
+    double s = cy.acc[i], c = cy.err[i];
+    add_to_total<T>(s, c, acc);
+    acc = s;
+    err += c;
+  }
+  if (cy.out) {
+    cy.acc[i] = acc;
+    cy.err[i] = err;
+    return false;
+  }
+  return true;
+}
+
+// resident blocks a multiprocessor the Q = 1 instances are held to (76 /
+// 128 registers, float / double, fit): left free, ptxas gives the carry's
+// epilogue a few more registers (170 in double), one block a
+// multiprocessor fewer, and the double reverse passes ran 33 % slower at
+// the paper's shape
 template <typename T, int QC>
-__global__ void __launch_bounds__(kThreads)
+constexpr int pair_min_blocks() {
+  return QC != 1 ? 1 : sizeof(T) == sizeof(double) ? 2 : 3;
+}
+
+// grid (pair blocks, P N-splits) over one chunk of N points. pair_part:
+// (P, 1 + Q, M (M + 1) / 2) packed partials of [P, A_1..A_Q], written by
+// the last chunk; carry: (2, P, 1 + Q, M (M + 1) / 2) doubles, the running
+// totals between chunks (unused for a lone chunk); pt: (pair blocks,
+// 1 + 3Q, N) per-point sums [t, sd_1..Q, sv_1..Q, tz_1..Q] of the chunk.
+// Compile-time Q: zbar, (z_a - z_b)^2, Gw and the pair sums in registers.
+template <typename T, int QC>
+__global__ void __launch_bounds__(kThreads, (pair_min_blocks<T, QC>()))
 pair_kernel(const T* __restrict__ mu, const T* __restrict__ S,
             const T* __restrict__ Z, const T* __restrict__ l2,
             const T* __restrict__ Gw, T* __restrict__ pair_part,
-            T* __restrict__ pt, int N, int M, int Q, int P) {
+            double* __restrict__ carry, T* __restrict__ pt, int N, int M, int Q,
+            int P, int carry_in, int carry_out) {
   constexpr int K = pair_slots(QC), G = pair_group(QC), R = pair_run(QC);
   constexpr int C = 1 + 3 * QC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -247,15 +310,18 @@ pair_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   }
 
   T* out = pair_part + static_cast<size_t>(p) * (1 + QC) * npairs;
+  const Carry cy = split_carry(carry, P, p, QC, npairs, carry_in, carry_out);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int t = first + k * kThreads + tid;
     if (t < npairs) {
-      out[t] = static_cast<T>(accP[k] + errP[k]);
+      if (carry_total<T>(cy, t, accP[k], errP[k])) out[t] = static_cast<T>(accP[k] + errP[k]);
 #pragma unroll
-      for (int q = 0; q < QC; ++q)
-        out[static_cast<size_t>(1 + q) * npairs + t] =
-            static_cast<T>((accA[k][q] + errA[k][q]) / staged_r_scale<T>());
+      for (int q = 0; q < QC; ++q) {
+        const size_t i = static_cast<size_t>(1 + q) * npairs + t;
+        if (carry_total<T>(cy, i, accA[k][q], errA[k][q]))
+          out[i] = static_cast<T>((accA[k][q] + errA[k][q]) / staged_r_scale<T>());
+      }
     }
   }
 }
@@ -297,7 +363,8 @@ __global__ void __launch_bounds__(kThreads)
 pair_kernel_rt(const T* __restrict__ mu, const T* __restrict__ S,
                const T* __restrict__ Z, const T* __restrict__ l2,
                const T* __restrict__ Gw, T* __restrict__ pair_part,
-               T* __restrict__ pt, int N, int M, int Q, int P) {
+               double* __restrict__ carry, T* __restrict__ pt, int N, int M, int Q,
+               int P, int carry_in, int carry_out) {
   constexpr int R = pair_run(0);
   constexpr int QB = kQChunkPair, CB = 1 + 3 * QB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -392,20 +459,22 @@ pair_kernel_rt(const T* __restrict__ mu, const T* __restrict__ S,
         add_to_total<T>(accA[qq], errA[qq], static_cast<double>(runA[qq]));
       store_pass_sums(s_w, pt, blockIdx.x, Q, q0, R, N, base, cnt);
     }
-    if (t < npairs) {
-      if (q0 == 0) out[t] = static_cast<T>(accP + errP);
+    const Carry cy = split_carry(carry, P, p, Q, npairs, carry_in, carry_out);
+    if (t < npairs) {  // P is summed in every pass but kept from the first
+      if (q0 == 0 && carry_total<T>(cy, t, accP, errP)) out[t] = static_cast<T>(accP + errP);
 #pragma unroll
-      for (int qq = 0; qq < QB; ++qq)
-        if (q0 + qq < Q)
-          out[static_cast<size_t>(1 + q0 + qq) * npairs + t] =
-              static_cast<T>((accA[qq] + errA[qq]) / staged_r_scale<T>());
+      for (int qq = 0; qq < QB; ++qq) {
+        const size_t i = static_cast<size_t>(1 + q0 + qq) * npairs + t;
+        if (q0 + qq < Q && carry_total<T>(cy, i, accA[qq], errA[qq]))
+          out[i] = static_cast<T>((accA[qq] + errA[qq]) / staged_r_scale<T>());
+      }
     }
   }
 }
 
 template <typename T>
-using PairKernel = void (*)(const T*, const T*, const T*, const T*, const T*, T*, T*,
-                            int, int, int, int);
+using PairKernel = void (*)(const T*, const T*, const T*, const T*, const T*, T*, double*,
+                            T*, int, int, int, int, int, int);
 
 template <typename T>
 PairKernel<T> pair_kernel_for(int Q) {
@@ -435,18 +504,21 @@ inline int pair_blocks(int M, int Q) {
   return (M * (M + 1) / 2 + per - 1) / per;
 }
 
-// the pair pass over P N-splits: packed pair partials (P, Q + 1, M (M + 1) / 2)
-// and per-point sums (pair_blocks(M, Q), 1 + 3Q, N)
+// the pair pass over P N-splits of one chunk of N points (mu, S start at
+// the chunk): packed pair partials (P, Q + 1, M (M + 1) / 2) from the last
+// chunk, running totals in carry between chunks, and per-point sums
+// (pair_blocks(M, Q), 1 + 3Q, N)
 template <typename T>
 cudaError_t pair_pass(int P, cudaStream_t stream, const T* mu, const T* S,
-                      const T* Z, const T* l2, const T* Gw, T* pair_part, T* pt,
-                      int N, int M, int Q) {
+                      const T* Z, const T* l2, const T* Gw, T* pair_part,
+                      double* carry, T* pt, int N, int M, int Q, int carry_in,
+                      int carry_out) {
   const PairKernel<T> fn = pair_kernel_for<T>(Q);
   const size_t smem = pair_smem_bytes<T>(Q);
   const cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return err;
-  fn<<<dim3(pair_blocks(M, Q), P), kThreads, smem, stream>>>(mu, S, Z, l2, Gw, pair_part,
-                                                            pt, N, M, Q, P);
+  fn<<<dim3(pair_blocks(M, Q), P), kThreads, smem, stream>>>(
+      mu, S, Z, l2, Gw, pair_part, carry, pt, N, M, Q, P, carry_in, carry_out);
   return cudaGetLastError();
 }
 
@@ -509,7 +581,7 @@ __device__ __forceinline__ void block_sum(T* s_red, T val, T* out, int k) {
 // branch only).
 // kPsi1: with the psi1/psiY branch (the fused reverse pass); without it
 // (the psi2-only reverse pass) Y, gyv and dY are not touched and D is unused.
-// pt: the pair pass's (NPB, 1 + 3Q, N) per-point sums.
+// pt: the pair pass's (NPB, 1 + 3Q, N) per-point sums of the chunk.
 // part: (gridDim.x, Q + 1) block partials of [dl_point (Q), dv_raw].
 template <typename T, int QC, bool kPsi1>
 __global__ void __launch_bounds__(kThreads)
@@ -665,7 +737,8 @@ size_t point_smem_bytes(int Q) {
   return compile_q(Q) == 0 && kPsi1 ? 2 * sizeof(T) * static_cast<size_t>(Q) * kThreads : 0;
 }
 
-// the point pass over NB = ceil(N / kThreads) blocks, reading the pair
+// the point pass over NB = ceil(N / kThreads) blocks of one chunk of N
+// points (every per-point pointer starts at the chunk), reading the pair
 // pass's per-point sums pt
 template <typename T, bool kPsi1>
 cudaError_t point_pass(int NB, cudaStream_t stream, const T* mu, const T* S,
@@ -679,6 +752,35 @@ cudaError_t point_pass(int NB, cudaStream_t stream, const T* mu, const T* S,
   fn<<<NB, kThreads, smem, stream>>>(mu, S, Y, Z, l2, ls, gyv, pt, dmu, dS, dY, part, N, M,
                                   Q, D, pair_blocks(M, Q));
   return cudaGetLastError();
+}
+
+// The pair and point passes over N in chunks of CN points (CN a multiple of
+// kThreads, or CN >= N), each chunk's pair pass then its point pass, so pt
+// holds (pair blocks, 1 + 3Q, CN) sums. Y, gyv and dY are null without the
+// psi1 branch. part: (ceil(N / kThreads), Q + 1), a chunk's blocks at its
+// first point's block. The P splits' pair sums carry across chunks in carry
+// ((2, P, Q + 1, M (M + 1) / 2) doubles; unused when one chunk covers N).
+template <typename T, bool kPsi1>
+cudaError_t run_chunks(int P, int CN, cudaStream_t stream, const T* mu, const T* S,
+                       const T* Y, const T* Z, const T* l2, const T* ls, const T* Gw,
+                       const T* gyv, T* pair_part, double* carry, T* pt, T* dmu, T* dS,
+                       T* dY, T* part, int N, int M, int Q, int D) {
+  if (CN < 1 || (CN < N && CN % kThreads != 0)) return cudaErrorInvalidValue;
+  for (int c0 = 0; c0 < N; c0 += CN) {
+    const int n = min(CN, N - c0);
+    const size_t rq = static_cast<size_t>(c0) * Q;
+    cudaError_t err = pair_pass<T>(P, stream, mu + rq, S + rq, Z, l2, Gw, pair_part, carry,
+                                   pt, n, M, Q, c0 > 0, c0 + n < N);
+    if (err != cudaSuccess) return err;
+    const size_t rd = static_cast<size_t>(c0) * D;
+    err = point_pass<T, kPsi1>((n + kThreads - 1) / kThreads, stream, mu + rq, S + rq,
+                               kPsi1 ? Y + rd : nullptr, Z, l2, ls, gyv, pt, dmu + rq,
+                               dS + rq, kPsi1 ? dY + rd : nullptr,
+                               part + static_cast<size_t>(c0 / kThreads) * (Q + 1), n, M,
+                               Q, D);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -20,7 +20,7 @@
 //       (the global psi2 sums of eq. (18))
 //     t = sum_{a<=b} Gw_ab E_ab, sd = sum Gw E (mu - zbar),
 //     sv = sum Gw E (mu - zbar)^2, tz = sum Gw E (z_a - z_b)^2
-//       (per point, as partials per pair block)
+//       (per point, as partials per pair block, one chunk of N at a time)
 //   point pass, per datapoint n (eq. (10)-(11), (16)-(17)):
 //     W1_m = (y_n . gyv_m) K_nm                          (eq. (8))
 //     s1 = sum_m W1_m, s1d = sum_m W1_m (mu - z_m), s1v = sum_m W1_m (mu - z_m)^2
@@ -52,7 +52,7 @@
 //     (reverse.cuh: warp_reduce_points; log2 G halving steps, then plain
 //     xor steps), then shared memory sums the 8 warps, and each block writes
 //     one partial per (pair block, point) to scratch (pair blocks, 1 + 3Q,
-//     N). At Q = 1 (G = 4) that costs a warp 6 shuffles, 6 selects and 6
+//     chunk). At Q = 1 (G = 4) that costs a warp 6 shuffles, 6 selects and 6
 //     adds a point (cuobjdump -sass), against the 48 instructions of its
 //     4 x 32 exponentials and moments: cheaper than evaluating every
 //     exponential again in a pass of its own.
@@ -86,6 +86,14 @@
 //     input dtype, over pair blocks in double), and dl's zterm part is summed
 //     point by point rather than contracted from P, where all of N's
 //     rounding meets the cancellation at once.
+//   * The pair and point passes run chunk by chunk over N
+//     (reverse.cuh: run_chunks), chunks of about N / (pair blocks) points,
+//     so the per-point scratch holds about N (1 + 3Q) sums whatever M is
+//     (one per (pair block, point) over all of N grew as N times the
+//     pair-block count: 2.25 GiB of the dry run's 3.4 GiB peak at
+//     N = 2^24, M = 128). Each split's pair sums continue across chunks in
+//     double, compensation term included, so chunking costs them no
+//     precision and their order stays fixed by the shapes.
 //   * The pair and point passes live in reverse.cuh, shared with the
 //     psi2-only reverse pass (psi2_bwd.cu), which runs them without the psi1
 //     branch.
@@ -216,13 +224,12 @@ template <typename T>
 cudaError_t suffstats_bwd(const T* mu, const T* S, const T* Y, const T* Z,
                           const T* l2, const T* ls, const T* Gw, const T* gyv,
                           T* dmu, T* dS, T* dY, T* point_part, T* point_sum,
-                          T* pair_part, T* pair_sum, T* pt, T* dz_part, T* dz1,
-                          int N, int M, int Q, int D, int P2, int PZ, int NB,
-                          cudaStream_t stream) {
-  cudaError_t err = pair_pass<T>(P2, stream, mu, S, Z, l2, Gw, pair_part, pt, N, M, Q);
-  if (err != cudaSuccess) return err;
-  err = point_pass<T, true>(NB, stream, mu, S, Y, Z, l2, ls, gyv, pt, dmu, dS, dY,
-                            point_part, N, M, Q, D);
+                          T* pair_part, T* pair_sum, double* carry, T* pt, T* dz_part,
+                          T* dz1, int N, int M, int Q, int D, int P2, int PZ, int NB,
+                          int CN, cudaStream_t stream) {
+  cudaError_t err = run_chunks<T, true>(P2, CN, stream, mu, S, Y, Z, l2, ls, Gw, gyv,
+                                        pair_part, carry, pt, dmu, dS, dY, point_part, N,
+                                        M, Q, D);
   if (err != cudaSuccess) return err;
 
   const dim3 gridZ((M + kZTileM - 1) / kZTileM, PZ);
@@ -246,22 +253,25 @@ cudaError_t suffstats_bwd(const T* mu, const T* S, const T* Y, const T* Z,
 // Plain C interface (bound with ctypes). Pointers are device pointers of
 // contiguous row-major arrays: mu, S (N, Q); Y (N, D); Z (M, Q); l2, ls (Q);
 // Gw (M, M); gyv (M, D); outputs dmu, dS (N, Q), dY (N, D); scratch
-// point_part (NB, Q + 1), pair_part (P2, Q + 1, M (M + 1) / 2), pt
-// (pair blocks, 1 + 3Q, N), dz_part (PZ, M, Q); sums point_sum (Q + 1) =
+// point_part (NB, Q + 1), pair_part (P2, Q + 1, M (M + 1) / 2), carry
+// (2, P2, Q + 1, M (M + 1) / 2) doubles (null when CN >= N), pt (pair
+// blocks, 1 + 3Q, min(CN, N)), dz_part (PZ, M, Q); sums point_sum (Q + 1) =
 // [dl_point, dv_raw], pair_sum (Q + 1, M, M) = [P, A_1..A_Q], dz1 (M, Q).
-// NB must be ceil(N / 256) and the pair-block count ceil(M (M + 1) / 2 /
-// pairs per block) with suffstats_bwd_geometry's pairs per block. Launches
+// NB must be ceil(N / 256), CN (points a chunk of the pair and point
+// passes) a multiple of 256 or >= N, and the pair-block count
+// ceil(M (M + 1) / 2 / pairs per block) with suffstats_bwd_geometry's pairs
+// per block. Launches
 // on `stream`, does not synchronize, returns the first cudaGetLastError()
 // that is not cudaSuccess (0 on success).
 #define SUFFSTATS_BWD_ENTRY(NAME, T)                                               \
   extern "C" int NAME(const T* mu, const T* S, const T* Y, const T* Z, const T* l2, \
                       const T* ls, const T* Gw, const T* gyv, T* dmu, T* dS, T* dY, \
                       T* point_part, T* point_sum, T* pair_part, T* pair_sum,       \
-                      T* pt, T* dz_part, T* dz1, int N, int M, int Q, int D,        \
-                      int P2, int PZ, int NB, void* stream) {                       \
+                      double* carry, T* pt, T* dz_part, T* dz1, int N, int M,       \
+                      int Q, int D, int P2, int PZ, int NB, int CN, void* stream) { \
     return static_cast<int>(suffstats_bwd<T>(                                      \
         mu, S, Y, Z, l2, ls, Gw, gyv, dmu, dS, dY, point_part, point_sum,          \
-        pair_part, pair_sum, pt, dz_part, dz1, N, M, Q, D, P2, PZ, NB,             \
+        pair_part, pair_sum, carry, pt, dz_part, dz1, N, M, Q, D, P2, PZ, NB, CN,  \
         static_cast<cudaStream_t>(stream)));                                       \
   }
 

@@ -604,6 +604,39 @@ def suffstats_cuda(mu, S, Y, Z, variance, lengthscale, *, waves: int = 1):
     return _psi2_prefactor(Z, variance, lengthscale) * acc2, variance * accY
 
 
+def point_chunk(N: int, M: int, pairs_per_block: int) -> int:
+    """Points a chunk of the reverse pair and point passes (B2, B4,
+    csrc/reverse.cuh: run_chunks) takes: N over the pair-block count,
+    rounded up to whole point-pass blocks, so the per-point scratch
+    (pair blocks, 1 + 3Q, chunk) holds about N (1 + 3Q) sums whatever M is.
+    A pure function of the shapes."""
+    per = -(-N // pair_blocks(M, pairs_per_block))
+    return min(N, -(-per // BWD_THREADS) * BWD_THREADS)
+
+
+def chunk_bounds(N: int, chunk: int) -> list:
+    """[begin, end) of each chunk of `chunk` points over N (the last may be
+    shorter)."""
+    return [(c0, min(N, c0 + chunk)) for c0 in range(0, N, chunk)]
+
+
+def bwd_pair_split(N: int, M: int, geo: Geometry, sms: int, waves: int = 1) -> Split:
+    """The reverse pair pass's `Split`: `psi2_split` over one chunk of
+    `point_chunk` points; every chunk launches the same split count, so
+    each split's pair sums carry from chunk to chunk."""
+    return psi2_split(point_chunk(N, M, geo.pairs_per_block), M, geo, sms, waves)
+
+
+def bwd_scratch(N: int, M: int, Q: int, geo: Geometry, P2: int) -> tuple:
+    """(per-point sums shape, carry shape) of a reverse launch: one chunk's
+    (pair blocks, 1 + 3Q, chunk) sums in the input dtype, and the splits'
+    running pair sums between chunks, (2, P2, Q + 1, M (M + 1) / 2) in
+    float64, empty when one chunk covers N."""
+    chunk = point_chunk(N, M, geo.pairs_per_block)
+    pt = (pair_blocks(M, geo.pairs_per_block), 1 + 3 * Q, chunk)
+    return pt, ((2, P2, Q + 1, pair_count(M)) if chunk < N else (0,))
+
+
 def dz_split(N: int, M: int, waves: int = 1) -> Split:
     """The fused reverse kernel's dZ pass: about `waves` x TARGET_BLOCKS
     blocks over its inducing-point tiles, no split shorter than one
@@ -614,10 +647,11 @@ def dz_split(N: int, M: int, waves: int = 1) -> Split:
 
 def bwd_splits(N: int, M: int, geo: Geometry, sms: int,
                waves: int = 1) -> tuple[int, int]:
-    """(P2, PZ): N-splits of the reverse kernel's pair pass (`psi2_splits`
-    with its own geometry) and of its dZ pass (`dz_split`). Pure functions
-    of the shapes, the geometry and the wave count."""
-    return psi2_splits(N, M, geo, sms, waves), dz_split(N, M, waves).count
+    """(P2, PZ): N-splits of the reverse kernel's pair pass
+    (`bwd_pair_split` with its own geometry) and of its dZ pass
+    (`dz_split`). Pure functions of the shapes, the geometry and the wave
+    count."""
+    return bwd_pair_split(N, M, geo, sms, waves).count, dz_split(N, M, waves).count
 
 
 def _folded_g2(Z, variance, lengthscale, g2):
@@ -653,7 +687,9 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY, *,
     v dv summed over the points, and the pair sums P_ab = sum_n E_nab and
     A_abq = sum_n E_nab r_nq (mu_nq - zbar_abq), which the O(M^2 Q)
     epilogue here turns into the psi2 part of dZ (eq. (18)). Scratch: the
-    pair pass's packed partials and its per-(pair block, point) sums."""
+    pair pass's packed partials, their running totals between chunks and
+    one chunk's per-(pair block, point) sums (`bwd_scratch`): about
+    N (1 + 3Q) elements, with no pair-block x N factor."""
     global BWD_LAUNCHES
     check_inputs(mu, S, Y, Z, variance, lengthscale, what="suffstats_bwd_cuda",
                  lib="suffstats_bwd", waves=waves, g2=g2, gY=gY)
@@ -671,11 +707,13 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY, *,
     point_part, point_sum = mu.new_empty(NB, Q + 1), mu.new_empty(Q + 1)
     pair_part = mu.new_empty(P2, Q + 1, pair_count(M))
     pair_sum = mu.new_empty(Q + 1, M, M)
-    pt = mu.new_empty(pair_blocks(M, geo.pairs_per_block), 1 + 3 * Q, N)
+    pt_shape, carry_shape = bwd_scratch(N, M, Q, geo, P2)
+    pt = mu.new_empty(pt_shape)
+    carry = mu.new_empty(carry_shape, dtype=torch.float64)
     dz_part, dz1 = mu.new_empty(PZ, M, Q), mu.new_empty(M, Q)
     launch("suffstats_bwd", (mu, S, Y, Z, l2, ls, Gw, gyv, dmu, dS, dY, point_part,
-                             point_sum, pair_part, pair_sum, pt, dz_part, dz1),
-           (N, M, Q, D, P2, PZ, NB))
+                             point_sum, pair_part, pair_sum, carry, pt, dz_part, dz1),
+           (N, M, Q, D, P2, PZ, NB, pt_shape[2]))
     BWD_LAUNCHES += 1
     dZ = dz1 + _psi2_dZ(Z, l2, G2p, pair_sum)
     dv = (point_sum[Q] / variance).reshape(variance.shape)
@@ -686,17 +724,18 @@ def psi2_bwd_cuda(mu, S, Z, variance, lengthscale, g2, *, waves: int = 1):
     """Cotangents (dmu, dS, dZ, dvariance, dlengthscale) of psi2 from the
     CUDA reverse kernel `csrc/psi2_bwd.cu` (replaces `psi2_bwd_pallas`)
     given g2 (M, M), on mu's device and stream, in the input dtype, its
-    N-splits filling `waves` waves of the card (`psi2_splits`): the
+    N-splits filling `waves` waves of the card (`bwd_pair_split`): the
     fused reverse kernel's pair and point passes without the psi1 branch,
-    the same folded cotangent and dZ epilogue. Raises on inputs the kernel
-    does not take and if the launch fails."""
+    chunk by chunk over N, the same folded cotangent, scratch
+    (`bwd_scratch`) and dZ epilogue. Raises on inputs the kernel does not
+    take and if the launch fails."""
     global PSI2_BWD_LAUNCHES
     check_inputs(mu, S, None, Z, variance, lengthscale, what="psi2_bwd_cuda",
                  lib="psi2_bwd", waves=waves, g2=g2)
     N, Q = mu.shape
     M = Z.shape[0]
     geo, sms = card_geometry("psi2_bwd", mu)
-    P2 = psi2_splits(N, M, geo, sms, waves)
+    P2 = bwd_pair_split(N, M, geo, sms, waves).count
     NB = -(-N // BWD_THREADS)
     ls = lengthscale.contiguous()
     l2 = (ls * ls).contiguous()
@@ -705,9 +744,11 @@ def psi2_bwd_cuda(mu, S, Z, variance, lengthscale, g2, *, waves: int = 1):
     point_part, point_sum = mu.new_empty(NB, Q + 1), mu.new_empty(Q + 1)
     pair_part = mu.new_empty(P2, Q + 1, pair_count(M))
     pair_sum = mu.new_empty(Q + 1, M, M)
-    pt = mu.new_empty(pair_blocks(M, geo.pairs_per_block), 1 + 3 * Q, N)
+    pt_shape, carry_shape = bwd_scratch(N, M, Q, geo, P2)
+    pt = mu.new_empty(pt_shape)
+    carry = mu.new_empty(carry_shape, dtype=torch.float64)
     launch("psi2_bwd", (mu, S, Z, l2, ls, Gw, dmu, dS, point_part, point_sum,
-                        pair_part, pair_sum, pt), (N, M, Q, P2, NB))
+                        pair_part, pair_sum, carry, pt), (N, M, Q, P2, NB, pt_shape[2]))
     PSI2_BWD_LAUNCHES += 1
     dv = (point_sum[Q] / variance).reshape(variance.shape)
     return dmu, dS, _psi2_dZ(Z, l2, G2p, pair_sum), dv, point_sum[:Q]

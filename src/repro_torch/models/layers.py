@@ -1,0 +1,170 @@
+"""Common transformer layers (counterpart of `repro.models.layers`).
+
+Every module is an (init, apply) pair over plain dicts of tensors.
+`init(gen, cfg, ...)` draws from an explicit `torch.Generator` on the
+device the tensors are made on; `apply(params, x, ...)` runs its matrix
+products in cfg.compute_dtype and its normalizations and softmax
+statistics in float32, as the reference does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def dt(cfg: ModelConfig, kind: str = "param") -> torch.dtype:
+    return dtype_of(cfg.param_dtype if kind == "param" else cfg.compute_dtype)
+
+
+def normal(gen: Optional[torch.Generator], shape, device) -> torch.Tensor:
+    """Standard normals in float32 drawn from `gen` on `device`; on the meta
+    device, an empty tensor of that shape (no draw, no allocation)."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+
+
+def dense_init(gen, d_in: int, d_out: int, cfg: ModelConfig, device,
+               scale: float | None = None) -> torch.Tensor:
+    scale = scale if scale is not None else d_in**-0.5
+    return (normal(gen, (d_in, d_out), device) * scale).to(dt(cfg))
+
+
+def rmsnorm_init(d: int, cfg: ModelConfig, device):
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (hd/2,)
+    angles = positions[..., :, None, None].float() * freqs  # (..., S, 1, hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg: ModelConfig, device, d: int | None = None, f: int | None = None):
+    d = d or cfg.d_model
+    f = f or cfg.d_ff
+    if cfg.act == "swiglu":
+        return {"w_gate": dense_init(gen, d, f, cfg, device),
+                "w_up": dense_init(gen, d, f, cfg, device),
+                "w_down": dense_init(gen, f, d, cfg, device)}
+    return {"w_up": dense_init(gen, d, f, cfg, device),
+            "w_down": dense_init(gen, f, d, cfg, device)}
+
+
+def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cdt = dt(cfg, "compute")
+    x = x.to(cdt)
+    if cfg.act == "swiglu":
+        h = F.silu(x @ params["w_gate"].to(cdt)) * (x @ params["w_up"].to(cdt))
+    else:  # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(x @ params["w_up"].to(cdt), approximate="tanh")
+    return h @ params["w_down"].to(cdt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding + sequence-chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+def embed_init(gen, cfg: ModelConfig, device):
+    # table std d^-1/2: lookups are rescaled by sqrt(d) below, and tied
+    # logits x @ table^T come out unit-variance without a separate scale.
+    # Rows beyond vocab_size are padding (cfg.padded_vocab) — never
+    # indexed, and masked out of logits/CE.
+    table = (normal(gen, (cfg.padded_vocab(), cfg.d_model), device)
+             * cfg.d_model**-0.5).to(dt(cfg))
+    return {"table": table}
+
+
+def embed_lookup(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["table"].to(dt(cfg, "compute"))[tokens] * (cfg.d_model**0.5)
+
+
+def unembed_init(gen, cfg: ModelConfig, device):
+    return {"w": dense_init(gen, cfg.d_model, cfg.padded_vocab(), cfg, device)}
+
+
+def logits_from(params_embed, params_unembed, x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Logits over the PADDED vocab (pad ids masked to -1e30)."""
+    cdt = dt(cfg, "compute")
+    if cfg.tie_embeddings:
+        logits = x.to(cdt) @ params_embed["table"].to(cdt).T
+    else:
+        logits = x.to(cdt) @ params_unembed["w"].to(cdt)
+    if cfg.padded_vocab() != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab(), device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor, loss_mask: torch.Tensor,
+                         params_embed, params_unembed, cfg: ModelConfig) -> torch.Tensor:
+    """Mean CE over masked positions without materializing (B, S, V).
+
+    Loops over sequence chunks; per chunk the (B, c, V) logits live
+    briefly and reduce to float32 sums. The reference's scan keeps no
+    chunk's logits for its backward; here each chunk runs under
+    `torch.utils.checkpoint`, so autograd saves only the chunk's inputs and
+    recomputes its logits in the backward.
+    """
+    B, S, _ = x.shape
+    c = min(cfg.logits_chunk, S)
+    pad = (-S) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        loss_mask = F.pad(loss_mask, (0, pad))
+
+    def chunk_sums(xc, lc, mc):
+        logits = logits_from(params_embed, params_unembed, xc, cfg).float()  # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * mc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, x.shape[1], c):
+        xc, lc, mc = x[:, i:i + c], labels[:, i:i + c], loss_mask[:, i:i + c]
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(chunk_sums, xc, lc, mc, use_reentrant=False)
+        else:
+            tot = tot + chunk_sums(xc, lc, mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,0 +1,290 @@
+"""Decoder-only LM assembly with pattern-period layer segments
+(counterpart of `repro.models.transformer`, the dense family).
+
+Heterogeneous layer patterns (gemma3's 5 local : 1 global) tile across
+num_layers and split into *segments* of repeated periods —
+
+    gemma3-4b (34L, pattern LLLLLG):  [5 x (L L L L L G)] + [1 x (L L L L)]
+
+Parameters are stacked (repeat, *param) per segment, as in the reference,
+so its parameter trees and checkpoints cross one to one (`convert`). The
+reference scans each segment; here a loop over the repeats runs the
+period's layers on each repeat's slice of the stacked leaves (one
+`unbind` a leaf, so the backward stacks the slices' gradients once).
+Under cfg.remat in training, each repeat runs under
+`torch.utils.checkpoint`, as the reference checkpoints its scan body.
+
+Only the dense family runs here: the MoE, RG-LRU, RWKV and encoder-decoder
+/ multimodal paths are ROADMAP A4.2 and raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (chunked_softmax_xent, dt, embed_init,
+                                       embed_lookup, logits_from, mlp_apply,
+                                       mlp_init, rmsnorm, rmsnorm_init,
+                                       unembed_init)
+
+Tree = Any
+AUX_LOSS_WEIGHT = 0.01
+NOT_PORTED = "ROADMAP A4.2"
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless the port runs cfg's family."""
+    mixers = set(cfg.layer_mixers())
+    if cfg.family != "dense" or cfg.num_experts or mixers != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family (mixers {sorted(mixers)}, "
+            f"{cfg.num_experts} experts) is not ported yet; the port runs the dense "
+            f"decoder only, the rest is {NOT_PORTED}")
+
+
+def _require_dense_layer(cfg: ModelConfig, mixer: str) -> None:
+    if mixer != "attn" or cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: a layer with mixer {mixer!r} and {cfg.num_experts} experts is "
+            f"not ported yet; the port runs dense attention layers only, the rest is "
+            f"{NOT_PORTED}")
+
+
+class Segment(NamedTuple):
+    repeat: int
+    windows: Tuple[int, ...]  # per position in the period
+    mixers: Tuple[str, ...]  # "attn" | "rglru" | "rwkv"
+
+
+def segments(cfg: ModelConfig) -> List[Segment]:
+    windows = cfg.layer_windows()
+    mixers = cfg.layer_mixers()
+    L = cfg.num_layers
+    if not cfg.scan_layers:  # fully unrolled: one repeat-1 segment per layer
+        return [Segment(1, (windows[i],), (mixers[i],)) for i in range(L)]
+    p = max(len(cfg.window_pattern), len(cfg.mixer_pattern))
+    k, r = divmod(L, p)
+    segs = []
+    if k:
+        segs.append(Segment(k, windows[:p], mixers[:p]))
+    if r:
+        segs.append(Segment(1, windows[L - r:], mixers[L - r:]))
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# per-layer init/apply
+# ---------------------------------------------------------------------------
+
+def _layer_init(gen, cfg: ModelConfig, mixer: str, device) -> Tree:
+    _require_dense_layer(cfg, mixer)
+    d = cfg.d_model
+    return {"ln1": rmsnorm_init(d, cfg, device), "ln2": rmsnorm_init(d, cfg, device),
+            "attn": attn.attn_init(gen, cfg, device), "mlp": mlp_init(gen, cfg, device)}
+
+
+class LayerState(NamedTuple):
+    """Decode-time state for one layer: the dense family's KV cache (the
+    reference's recurrent-mixer fields come with A4.2)."""
+
+    kv: Optional[attn.KVCache]
+
+
+def _layer_apply(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                 *, mixer: str, window: int, mode: str, state: Optional[LayerState],
+                 cur_pos) -> tuple:
+    """Returns (x_out, new_state, aux_loss)."""
+    _require_dense_layer(cfg, mixer)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    new_state = state
+    if mode == "train":
+        if state is not None:  # prefill: also build the cache
+            out, (k, v) = attn.attn_apply_train(params["attn"], h, positions, cfg,
+                                                window=window, return_kv=True)
+            new_state = state._replace(kv=attn.cache_from_prefill(state.kv, k, v,
+                                                                  positions, window))
+        else:
+            out = attn.attn_apply_train(params["attn"], h, positions, cfg, window=window)
+    else:
+        out, kv = attn.attn_apply_decode(params["attn"], h, cur_pos, state.kv, cfg,
+                                         window=window)
+        new_state = state._replace(kv=kv)
+    x = x + out.to(x.dtype)
+    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    x = x + mlp_apply(params["mlp"], h, cfg).to(x.dtype)
+    return x, new_state, aux
+
+
+# ---------------------------------------------------------------------------
+# stacked leaves
+# ---------------------------------------------------------------------------
+
+def _stack(trees: list) -> Tree:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _unstack(tree: Tree, n: int) -> list:
+    """The n slices of a tree of stacked (n, ...) leaves, each leaf split by
+    one `unbind`."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+# ---------------------------------------------------------------------------
+# whole-model init / apply
+# ---------------------------------------------------------------------------
+
+def _resolve(device) -> torch.device:
+    """The meta device as it is; any other through `device.resolve` (which
+    raises on a CUDA device the host does not have)."""
+    device = torch.device(device)
+    return device if device.type == "meta" else _device.resolve(device)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Tree:
+    """Random parameters from `seed`, drawn on `device` (on the meta device:
+    the shapes and dtypes alone, nothing allocated). The draws are the
+    port's own: `jax.random` has no torch counterpart, so trees cross from
+    the reference through `convert`, not through a seed."""
+    require_dense(cfg)
+    device = _resolve(device)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    params: Dict[str, Tree] = {"embed": embed_init(gen, cfg, device)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = unembed_init(gen, cfg, device)
+    params["final_norm"] = rmsnorm_init(cfg.d_model, cfg, device)
+    for si, seg in enumerate(segments(cfg)):
+        rows = [[_layer_init(gen, cfg, seg.mixers[j], device) for j in range(len(seg.windows))]
+                for _ in range(seg.repeat)]
+        params[f"seg{si}"] = tuple(_stack([rows[r][j] for r in range(seg.repeat)])
+                                   for j in range(len(seg.windows)))
+    return params
+
+
+def _backbone(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+              *, mode: str, states: Optional[Tree], cur_pos):
+    """Runs all segments. states (if given) mirrors the segment structure:
+    states[f"seg{si}"] = tuple over period positions of stacked LayerStates,
+    filled (prefill) or advanced (decode) in place."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for si, seg in enumerate(segments(cfg)):
+        per_pos = [_unstack(p, seg.repeat) for p in params[f"seg{si}"]]  # [j][r]
+        seg_state = states[f"seg{si}"] if states is not None else None
+
+        def body(xc, r, _seg=seg, _per_pos=per_pos, _seg_state=seg_state):
+            aux_r = torch.zeros((), dtype=torch.float32, device=xc.device)
+            for j in range(len(_seg.windows)):
+                st = None
+                if _seg_state is not None:
+                    kv = _seg_state[j].kv
+                    st = LayerState(attn.KVCache(kv.k[r], kv.v[r], kv.pos[r]))
+                xc, _, aux = _layer_apply(_per_pos[j][r], xc, positions, cfg,
+                                          mixer=_seg.mixers[j], window=_seg.windows[j],
+                                          mode=mode, state=st, cur_pos=cur_pos)
+                aux_r = aux_r + aux
+            return xc, aux_r
+
+        remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+        for r in range(seg.repeat):
+            # the reference's optimization_barrier (which keeps XLA from
+            # widening the saved residual) has no eager counterpart: eager
+            # autograd saves each layer's input in its own dtype
+            if remat:
+                x, aux = checkpoint(body, x, r, use_reentrant=False)
+            else:
+                x, aux = body(x, r)
+            aux_total = aux_total + aux
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, states, aux_total
+
+
+def init_decode_state(cfg: ModelConfig, B: int, S_ctx: int, *, device="cuda") -> Tree:
+    """Stacked per-segment decode states (KV caches), zero-filled, positions
+    -1 (empty)."""
+    require_dense(cfg)
+    device = _resolve(device)
+    cdt = dt(cfg, "compute")
+    states: Dict[str, Tree] = {}
+    for si, seg in enumerate(segments(cfg)):
+        per_pos = []
+        for j in range(len(seg.windows)):
+            one = attn.init_cache(cfg, B, S_ctx, seg.windows[j], cdt, device)
+            per_pos.append(LayerState(attn.KVCache(
+                *(t.unsqueeze(0).repeat(seg.repeat, *([1] * t.ndim)) for t in one))))
+        states[f"seg{si}"] = tuple(per_pos)
+    return states
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def _input_embeddings(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Token embeddings (the multimodal prefix of `frontend_embeds` is A4.2)."""
+    if "frontend_embeds" in batch:
+        raise NotImplementedError(f"frontend_embeds: the multimodal prefix is {NOT_PORTED}")
+    return embed_lookup(params["embed"], batch["tokens"], cfg)
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> tuple:
+    """Next-token CE (+ the MoE aux term, 0 for the dense family).
+    batch: tokens (B, S). Returns (loss, {"ce", "aux"})."""
+    require_dense(cfg)
+    tokens = batch["tokens"]
+    x = _input_embeddings(params, batch, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    x, _, aux = _backbone(params, x, positions, cfg, mode="train", states=None, cur_pos=None)
+    labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    mask = batch.get("loss_mask")
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device) \
+        if mask is None else mask.to(torch.float32).clone()
+    mask[:, -1] = 0.0
+    ce = chunked_softmax_xent(x, labels, mask, params["embed"], params.get("unembed"), cfg)
+    loss = ce + AUX_LOSS_WEIGHT * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            total_slots: int | None = None):
+    """Full-context forward building decode caches; returns (last_logits,
+    states). total_slots: KV-cache capacity (>= prefill length + planned
+    decode steps); defaults to prefill length + 1."""
+    require_dense(cfg)
+    x = _input_embeddings(params, batch, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    states = init_decode_state(cfg, B, total_slots or S + 1, device=x.device)
+    x, states, _ = _backbone(params, x, positions, cfg, mode="train", states=states,
+                             cur_pos=None)
+    logits = logits_from(params["embed"], params.get("unembed"), x[:, -1:, :], cfg)
+    return logits[:, 0], states
+
+
+def decode_step(params, tokens: torch.Tensor, cur_pos, states: Tree, cfg: ModelConfig):
+    """One-token serve step. tokens: (B, 1); cur_pos: absolute position (an
+    int or a 0-dim integer tensor). Returns (logits (B, V) float32, states),
+    the states advanced in place."""
+    require_dense(cfg)
+    x = embed_lookup(params["embed"], tokens, cfg)
+    B = x.shape[0]
+    cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=x.device).reshape(())
+    positions = cur.expand(B, 1)
+    x, states, _ = _backbone(params, x, positions, cfg, mode="decode", states=states,
+                             cur_pos=cur)
+    logits = logits_from(params["embed"], params.get("unembed"), x, cfg)
+    return logits[:, 0].float(), states

@@ -10,8 +10,9 @@
     float32 before the step is taken, then cast back to its own dtype —
     float64 parameters included.
 
-Parameter trees are nested dicts (or a single tensor), flattened in sorted
-key order as `jax.tree` flattens dicts. A Python-number step size is
+Parameter trees are nested dicts, tuples and lists (or a single tensor),
+flattened as `jax.tree` flattens them: dict keys in sorted order, sequence
+items in order, a path naming each item by its index. A Python-number step size is
 weakly typed in the reference and so enters the float32 update as float32;
 a schedule that returns a tensor widens the step to the promotion of its
 dtype and float32, as a non-weak array does in the reference (torch's own
@@ -24,7 +25,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-Tree = Any  # a tensor, or a dict whose values are trees
+Tree = Any  # a tensor, or a dict, tuple or list of trees
 
 _STATE_DTYPES = {"float32": torch.float32, "float64": torch.float64,
                  "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -34,6 +35,9 @@ def _walk(t, prefix, paths, leaves) -> None:
     if isinstance(t, dict):
         for k in sorted(t):
             _walk(t[k], (*prefix, str(k)), paths, leaves)
+    elif isinstance(t, (tuple, list)):
+        for i, v in enumerate(t):
+            _walk(v, (*prefix, str(i)), paths, leaves)
     else:
         paths.append("/".join(prefix))
         leaves.append(t)
@@ -53,6 +57,9 @@ def flatten(tree: Tree) -> Tuple[List[str], List[torch.Tensor]]:
 def _build(t, it):
     if isinstance(t, dict):
         return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (tuple, list)):
+        items = [_build(v, it) for v in t]
+        return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
     return next(it)
 
 
@@ -108,7 +115,10 @@ def adam_update(grads: Tree, state: AdamState, params: Tree,
     gnorm = global_norm(grads)
     if config.clip_norm is not None:
         scale = torch.clamp(config.clip_norm / (gnorm + 1e-9), max=1.0)
-        grads = tree_map(lambda g: g * scale, grads)
+        # promoted with the float32 scale, as the reference's arrays are: a
+        # bfloat16 gradient is clipped in float32 (torch would keep bf16)
+        grads = tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale,
+                         grads)
 
     lr = config.lr(step) if callable(config.lr) else config.lr
     if isinstance(lr, torch.Tensor):

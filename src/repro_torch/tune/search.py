@@ -26,6 +26,7 @@ candidate is clamped, so each candidate launches a different grid.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -189,19 +190,25 @@ def launch_plan(kernel_name: str, waves: int, problem: Problem, dtype, card) -> 
     check_shared_memory(kernel_name, Q, M, dtype)
     size = _itemsize(dtype)
     pairs = ss.pair_count(M)
-    if lib in ("suffstats_fwd", "suffstats_bwd", "psi2_fwd", "psi2_bwd"):
+    if lib in ("suffstats_fwd", "psi2_fwd"):
         pair = ss.psi2_split(N, M, card.psi2_geometry(lib, dtype, Q), card.sms, waves)
         if lib == "suffstats_fwd":
             y = ss.psiy_split(N, M, D, waves)
             splits, scratch = (pair, y), (pair.count * pairs, y.count * M * D)
-        elif lib == "suffstats_bwd":
-            z = ss.dz_split(N, M, waves)
-            splits, scratch = (pair, z), (pair.count * (Q + 1) * pairs, z.count * M * Q)
-        elif lib == "psi2_fwd":
-            splits, scratch = (pair,), (pair.count * pairs,)
         else:
-            splits, scratch = (pair,), (pair.count * (Q + 1) * pairs,)
+            splits, scratch = (pair,), (pair.count * pairs,)
         return Launch(splits, scratch, size * sum(scratch))
+    if lib in ("suffstats_bwd", "psi2_bwd"):
+        # the pair partials (and B2's dZ partials) in the input dtype; the
+        # splits' running pair sums between chunks in float64
+        geo = card.psi2_geometry(lib, dtype, Q)
+        pair = ss.bwd_pair_split(N, M, geo, card.sms, waves)
+        carry = math.prod(ss.bwd_scratch(N, M, Q, geo, pair.count)[1])
+        splits, scratch = (pair,), (pair.count * (Q + 1) * pairs,)
+        if lib == "suffstats_bwd":
+            z = ss.dz_split(N, M, waves)
+            splits, scratch = (pair, z), (*scratch, z.count * M * Q)
+        return Launch(splits, (*scratch, carry), size * sum(scratch) + 8 * carry)
     if lib == "psi1_bwd":
         plan = ss.psi1_bwd_plan(M, Q, size)
         resident = card.psi1_bwd_resident(dtype, M, Q, plan) * card.sms

@@ -130,6 +130,51 @@ def test_suffstats_bwd_kernel_matches_plain(card, case, dtype):
         assert _rel(g, w) <= TOL[dtype]
 
 
+# (N, M, Q, D): the dry run's M and the second kernel shape's (M, Q), where
+# the per-(pair block, point) sums over all of N once grew to within 4x of
+# an (N, M) buffer; N ragged, several chunks of the reverse passes
+C6_CASES = [(20_011, 128, 1, 3), (20_011, 256, 4, 5)]
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32), ids=str)
+@pytest.mark.parametrize("case", C6_CASES, ids=str)
+@pytest.mark.parametrize("name", ["suffstats_bwd", "psi2_bwd"])
+def test_reverse_scratch_has_no_pair_block_factor(card, monkeypatch, name, case, dtype):
+    """B2 and B4 allocate no buffer of pair blocks x N elements (one chunk's
+    per-point sums, about N (1 + 3Q)), run over several chunks, match their
+    plain versions at phase 3's tolerances and repeat bitwise."""
+    N, M, Q, D = case
+    arrs = _inputs(N, M, Q, D, True) + _cotangents(M, D)
+    kernel, plain = ((ss.suffstats_bwd_cuda, ss.suffstats_vjp_plain) if name == "suffstats_bwd"
+                     else (ss.psi2_bwd_cuda, ss.psi2_vjp_plain))
+    if name == "psi2_bwd":
+        arrs = arrs[:2] + arrs[3:7]  # mu, S, Z, variance, lengthscale, g2
+    want = plain(*arrs)
+    dev = [a.to(card, dtype) for a in arrs]
+    shapes, real = [], ss.launch
+
+    def launch(lib, tensors, ints):
+        shapes.extend(tuple(t.shape) for t in tensors)
+        return real(lib, tensors, ints)
+
+    monkeypatch.setattr(ss, "launch", launch)
+    got, again = kernel(*dev), kernel(*dev)
+    torch.cuda.synchronize()
+    geo, _ = ss.card_geometry(name, dev[0])
+    blocks = ss.pair_blocks(M, geo.pairs_per_block)
+    chunk = ss.point_chunk(N, M, geo.pairs_per_block)
+    assert blocks > 1 and len(ss.chunk_bounds(N, chunk)) > 1
+    # the only buffers with a per-point axis are the (N, Q) / (N, D) inputs
+    # and cotangents and one chunk's (pair blocks, 1 + 3Q, chunk) sums
+    assert (blocks, 1 + 3 * Q, chunk) in shapes and chunk < N
+    for shape in shapes:
+        if N in shape:
+            assert len(shape) == 2 and shape[1] <= max(Q, D), shape
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)  # bitwise reproducible
+        assert _rel(g, w) <= TOL[dtype]
+
+
 def test_ops_backward_runs_the_kernel_with_mixed_dtypes(card):
     """The GP-LVM facade's mix: float64 mu, Y, Z; float32 S, variance and
     lengthscale. The op computes in mu's dtype, backward through the

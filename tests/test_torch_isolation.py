@@ -34,6 +34,18 @@ NEW_MODULES = {
     "repro_torch.analysis.trace_check", "repro_torch.launch",
     "repro_torch.launch.cost", "repro_torch.launch.gp_dryrun",
     "repro_torch.launch.memory", "repro_torch.launch.roofline",
+    # the dense LM side
+    "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.smollm_360m",
+    "repro_torch.configs.gemma3_4b", "repro_torch.configs.minicpm_2b",
+    "repro_torch.configs.internlm2_20b", "repro_torch.configs.arctic_480b",
+    "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.whisper_small",
+    "repro_torch.configs.recurrentgemma_2b", "repro_torch.configs.rwkv6_7b",
+    "repro_torch.configs.internvl2_2b", "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.transformer",
+    "repro_torch.models.model_zoo", "repro_torch.optim.schedule", "repro_torch.launch.mesh",
+    "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.launch.serve",
+    "repro_torch.runtime", "repro_torch.runtime.train_loop", "repro_torch.core.gp_head",
+    "repro_torch.core.gp_kernels",
 }
 
 
@@ -43,7 +55,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, leaked, names = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 43  # every module of the port, analysis/ and launch/ too
+    assert int(count) >= 75  # every module of the port: analysis/, launch/, the LM side
     assert NEW_MODULES <= set(names.split(","))
     assert leaked == "[]", leaked
 
@@ -91,6 +103,21 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
     from repro_torch.launch import gp_dryrun
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gp_dryrun.main(["--n", "64", "--m", "4", "--out", "unused.json"])
+    # the LM side: models, states, data, the head and both launchers
+    from repro_torch.configs import ShapeCell, get_smoke_config
+    from repro_torch.core import gp_head
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import serve, train
+    from repro_torch.models import model_zoo
+    lm = model_zoo.build(get_smoke_config("smollm-360m"))
+    for call in (lm.init, lambda: lm.init_decode_state(1, 8),
+                 lambda: TokenStream(lm.cfg, ShapeCell("t", 8, 1, "train")),
+                 lambda: gp_head.init_head(0, 4, M=3),
+                 lambda: train.main(["--arch", "smollm-360m", "--steps", "1"]),
+                 lambda: serve.main(["--arch", "smollm-360m"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert lm.init(device="meta")["embed"]["table"].device.type == "meta"
     # the same calls run where the caller asks for the CPU
     GPServer(device="cpu").close()
     assert convert.params_from_numpy(params, device="cpu")["Z"].device.type == "cpu"

@@ -90,3 +90,26 @@ def test_evaluated_rows_pad_each_run_to_whole_warp_reductions(N, geo):
     assert N <= rows <= N + runs * (geo.group - 1)
     if geo.group == 1:
         assert rows == N
+
+
+@pytest.mark.parametrize("N", [1, 255, 256, 20_011, 1_000_003, 16_777_216])
+@pytest.mark.parametrize("M,Q,ppb", [(5, 1, 1024), (100, 1, 1024), (128, 1, 1024),
+                                     (256, 4, 512), (1000, 20, 256)])
+def test_reverse_chunks_bound_the_point_scratch(N, M, Q, ppb):
+    """The reverse passes' chunks tile N in whole point-pass blocks (all
+    but the last), and their per-point scratch holds about N (1 + 3Q)
+    sums with no pair-block x N factor; the pair sums' carry is left out
+    where one chunk covers N."""
+    geo = tss.Geometry(ppb, 2, 32, 4)
+    chunk = tss.point_chunk(N, M, ppb)
+    bounds = tss.chunk_bounds(N, chunk)
+    assert bounds[0][0] == 0 and bounds[-1][1] == N
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all((hi - lo) % tss.BWD_THREADS == 0 for lo, hi in bounds[:-1])
+    blocks = tss.pair_blocks(M, ppb)
+    assert len(bounds) <= blocks
+    P2 = tss.bwd_pair_split(N, M, geo, 132).count
+    pt, carry = tss.bwd_scratch(N, M, Q, geo, P2)
+    assert pt == (blocks, 1 + 3 * Q, chunk)
+    assert blocks * chunk <= N + blocks * tss.BWD_THREADS
+    assert carry == ((2, P2, Q + 1, tss.pair_count(M)) if len(bounds) > 1 else (0,))

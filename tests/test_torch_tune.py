@@ -271,13 +271,19 @@ class FakeCard:
 
 def _parent_counts(name, N, M, Q, D, dtype, card):
     """The split counts each wrapper launched before tuning existed, in the
-    formulas of its parent commit."""
+    formulas of its parent commit; the reverse pair passes (B2, B4) split
+    each chunk of about N / (pair blocks) points, whole point-pass blocks,
+    over which they run since their per-point scratch lost its pair-block
+    factor."""
     size = torch.finfo(dtype).bits // 8
     if name in ("suffstats_pallas", "suffstats_bwd_pallas", "psi2_pallas",
                 "psi2_bwd_pallas"):
         geo = card.psi2_geometry(search.KERNELS[name].lib, dtype, Q)
         blocks = -(-M * (M + 1) // 2 // geo.pairs_per_block)
-        p2 = max(1, min(geo.blocks_per_sm * card.sms // blocks, N // geo.run))
+        points = N
+        if name in ("suffstats_bwd_pallas", "psi2_bwd_pallas"):
+            points = min(N, -(-(-(-N // blocks)) // 256) * 256)
+        p2 = max(1, min(geo.blocks_per_sm * card.sms // blocks, points // geo.run))
         if name == "suffstats_pallas":
             y_blocks = -(-M // 32) * -(-D // 8)
             return p2, max(1, min(-(-tss.TARGET_BLOCKS // y_blocks), -(-N // 64)))
