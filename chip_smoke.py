@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, data-parallel,
-persistence, tuning and analysis paths, the reference's GP-LVM dry run and
-the dense LM (smollm-360m at full width), on one CUDA card.
+persistence, tuning and analysis paths, the reference's GP-LVM dry run,
+the dense LM (smollm-360m at full width) and every other LM family at full
+width, on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -186,6 +187,26 @@ Phases (any failure exits non-zero and prints no result):
    256 mean-pooled final features (Q = 960, M = 256): its loss falls and
    its variance is larger 20 away from the data. The LM launches none of
    B1-B7.
+
+19. The remaining LM families at full width (`[lm-families]` lines; bf16
+   parameters from seed 0, no weights fetched; d_model, heads, d_ff,
+   experts, vocabulary and windows as configured, only depth and batch
+   cut, each cut printed): recurrentgemma-2b (RG-LRU + windowed MQA),
+   rwkv6-7b (RWKV-6), moonshot-v1-16b-a3b (64 experts, top-6),
+   arctic-480b (128 experts, top-2, dense residual), whisper-small
+   (encoder-decoder, 1,500 stub frames) and internvl2-2b (a 256-patch
+   stub prefix). Each is served through `launch.serve.generate` twice
+   (finite logits, padded ids below -1e29, both runs' greedy tokens
+   equal; prefill ms, decode tok/s, peak GiB), held in float32 at 2 layers
+   (recurrentgemma 3, its first period; arctic 1) decode-after-prefill
+   against the full forward (the reference's 1e-3 max(scale, 1), MoE at
+   capacity factor 8), and, but for arctic, trained 3 steps through
+   `launch.steps.make_train_step` on one repeated `TokenStream` batch
+   (finite losses, the last below the first; step ms, positions/s, peak
+   GiB). For rwkv6-7b and recurrentgemma-2b the mixer's parallel form
+   (RWKV-6's chunks, RG-LRU's associative scan) is held to its step
+   recurrence over 128 tokens in float32 at the CPU tests' 2e-4 / 3e-4.
+   Sizes and cuts are `LM_FAMILIES` / `LM_FAMILY_CUTS`. No B1-B7 launch.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -3097,6 +3118,242 @@ def phase_lm(device: str = "cuda", preset: str = "full", serve_sizes=LM_SERVE,
     return {**served, **trained}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the remaining LM families at full width
+# ---------------------------------------------------------------------------
+
+# per architecture, at full width (d_model, heads, d_ff, experts, vocab and
+# window as configured) in bf16 from seed 0: the layers served (None = all)
+# and the serve sizes (batch, prompt tokens, new tokens); the layers of the
+# float32 decode-vs-forward check; the layers trained (None = all) and the
+# train sizes (batch, sequence with any frontend prefix, steps), or None
+LM_FAMILIES = {
+    "recurrentgemma-2b": {"serve": (None, (2, 512, 32)), "check_layers": 3,
+                          "train": (None, (2, 2048, 3))},
+    "rwkv6-7b": {"serve": (None, (2, 512, 32)), "check_layers": 2,
+                 "train": (8, (2, 2048, 3))},
+    "moonshot-v1-16b-a3b": {"serve": (16, (2, 512, 32)), "check_layers": 2,
+                            "train": (3, (2, 2048, 3))},
+    "arctic-480b": {"serve": (1, (2, 256, 8)), "check_layers": 1, "train": None},
+    "whisper-small": {"serve": (None, (2, 128, 32)), "check_layers": 2,
+                      "train": (None, (8, 448, 3))},
+    "internvl2-2b": {"serve": (None, (2, 512, 32)), "check_layers": 2,
+                     "train": (None, (4, 2048, 3))},
+}
+# why a part runs cut, as the [lm-families] lines print it
+LM_FAMILY_CUTS = {
+    "recurrentgemma-2b": "float32 check at 3 layers (rglru, rglru, attn: the first period)",
+    "rwkv6-7b": "train 8 of 32 layers (a train step holds ~22 bytes a parameter: bf16 "
+                "parameters, gradients and the new parameters, old and new float32 "
+                "moments)",
+    "moonshot-v1-16b-a3b": "serve 16 of 48 layers (52.3 GiB in bf16 at full depth), "
+                           "train 3 of 48 (4 ran out of the card's memory in Adam)",
+    "arctic-480b": "serve 1 of 35 layers (888 GiB in bf16 at full depth), float32 check at "
+                   "1 layer (2 would be 107 GB), no training",
+    "whisper-small": "none",
+    "internvl2-2b": "none",
+}
+# the decode-vs-forward check's batch and prompt; the recurrent mixers'
+# parallel form vs their step recurrence: batch and tokens, and the CPU
+# tests' tolerances (relative and absolute)
+LM_FAMILY_CHECK = (2, 128)
+LM_SCAN_CHECK = (2, 128)
+LM_SCAN_TOL = {"rwkv": 2e-4, "rglru": 3e-4}
+
+
+def _cut(cfg, layers):
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def _n_params(tree) -> int:
+    return sum(t.numel() for t in flatten(tree)[1])
+
+
+def _family_batch(cfg, B: int, S: int, dev, seed: int) -> dict:
+    """A prompt or training batch of S text tokens (after any frontend
+    prefix; the audio family's frames ride along), drawn from `seed`."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shape = ShapeCell("f", S + (cfg.frontend_tokens or 0), B, "train")
+    return model_zoo.make_batch(gen, cfg, shape, batch=B)
+
+
+def _release(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def family_serve(arch: str, cfg, dev, layers, sizes, card: str) -> dict:
+    """Prefill and greedy decode through `launch.serve.generate`, twice."""
+    B, S, new = sizes
+    cut = _cut(cfg, layers)
+    params = model_zoo.build(cut).init(0, device=dev)
+    n = _n_params(params)
+    batch = _family_batch(cut, B, S, dev, 0)
+    cold = lm_serve.generate(cut, params, batch, new)
+    _reset_peak(dev)
+    r = lm_serve.generate(cut, params, batch, new)
+    peak = _peak_gib(dev)
+    V = cut.vocab_size
+    for name, lg in (("prefill", r.prefill_logits), ("last decode", r.last_logits)):
+        check(bool(torch.isfinite(lg[:, :V]).all()), f"[lm-families] {arch}: {name} logits")
+        check(bool((lg[:, V:] < -1e29).all()), f"[lm-families] {arch}: {name} padded ids")
+    check(tuple(r.tokens.shape) == (B, new) and int(r.tokens.max()) < V,
+          f"[lm-families] {arch}: tokens {tuple(r.tokens.shape)}")
+    check(torch.equal(r.tokens, cold.tokens), f"[lm-families] {arch}: two greedy runs disagree")
+    extra = (f" + {cut.frontend_tokens}-patch prefix" if cut.frontend_tokens else "") + (
+        f", {cut.encoder_frames} encoder frames" if cut.family == "audio" else "")
+    log(f"[lm-families] serve {arch} ({n:,} parameters, {cut.num_layers} of {cfg.num_layers} "
+        f"layers, {cut.param_dtype}): B={B} x {S}{extra} prompt + {new} greedy tokens; prefill "
+        f"{r.prefill_s * 1e3:.1f} ms (cold {cold.prefill_s * 1e3:.1f}), decode "
+        f"{r.decode_tok_s:.1f} tok/s ({r.decode_s / new * 1e3:.2f} ms a step), peak "
+        f"{peak:.3f} GiB; two runs' tokens equal; sample {r.tokens[0, :8].tolist()} | {card}")
+    out = {"params": n, "prefill_ms": r.prefill_s * 1e3, "decode_tok_s": r.decode_tok_s,
+           "serve_peak_gib": peak}
+    del params, r, cold
+    _release(dev)
+    return out
+
+
+def family_decode_check(arch: str, cfg, dev, layers: int, sizes, card: str) -> None:
+    """Float32 at full width: decode after a (P - 1)-token prefill against the
+    P-token forward, within the reference's 1e-3 max(scale, 1) (MoE at
+    capacity factor 8, as the reference's smoke test)."""
+    B, P = sizes
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, param_dtype="float32",
+                                compute_dtype="float32")
+    if cfg32.num_experts:
+        cfg32 = dataclasses.replace(cfg32, capacity_factor=8.0)
+    m32 = model_zoo.build(cfg32)
+    params = m32.init(1, device=dev)
+    batch = _family_batch(cfg32, B, P, dev, 1)
+    short = dict(batch, tokens=batch["tokens"][:, :-1])
+    pos = P - 1 + (cfg32.frontend_tokens or 0)
+    with torch.no_grad():
+        full, _ = m32.prefill(params, batch)
+        _, states = m32.prefill(params, short)
+        dec, _ = m32.decode_step(params, batch["tokens"][:, -1:], pos, states)
+    V = cfg32.vocab_size
+    scale = float(full[:, :V].abs().max())
+    err = float((full[:, :V] - dec[:, :V]).abs().max())
+    log(f"[lm-families] {arch} float32 at {layers} layer{'s' * (layers > 1)} of full width: "
+        f"decode after a {P - 1}-token prefill vs the {P}-token forward, max err {err:.3e} "
+        f"(bound 1e-3 max(scale {scale:.3f}, 1)) | {card}")
+    check(err < 1e-3 * max(scale, 1.0), f"[lm-families] {arch} decode vs forward: {err}")
+    del params, states
+    _release(dev)
+
+
+def _allclose_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """max |got - want| / (tol + tol |want|): at most 1 within the CPU tests'
+    rtol = atol = tol."""
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def family_scan_check(arch: str, cfg, dev, sizes, card: str) -> None:
+    """The recurrent mixer's parallel form (RWKV-6's chunks, RG-LRU's
+    associative scan) against its step recurrence, float32 at full width."""
+    from repro_torch.models import rglru, rwkv6
+
+    B, T = sizes
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+    mixer = "rwkv" if "rwkv" in cfg.layer_mixers() else "rglru"
+    with torch.no_grad():
+        if mixer == "rwkv":
+            p = rwkv6.timemix_init(gen, cfg32, dev)
+            st0 = rwkv6.timemix_state_init(cfg32, B, torch.float32, dev)
+            par, st_par = rwkv6.timemix_apply_chunked(p, x, st0, cfg32)
+            step_fn, state_of = rwkv6.timemix_apply_decode, (lambda s: s.S)
+        else:
+            p = rglru.rglru_init(gen, cfg32, dev)
+            st0 = rglru.rglru_state_init(cfg32, B, torch.float32, dev)
+            par, st_par = rglru.rglru_apply_train(p, x, st0, cfg32)
+            step_fn, state_of = rglru.rglru_apply_decode, (lambda s: s.h)
+        st, outs = st0, []
+        for t in range(T):
+            o, st = step_fn(p, x[:, t:t + 1], st, cfg32)
+            outs.append(o)
+        seq = torch.cat(outs, 1)
+    tol = LM_SCAN_TOL[mixer]
+    e_out, e_st = _allclose_err(par, seq, tol), _allclose_err(state_of(st_par), state_of(st), tol)
+    log(f"[lm-families] {arch} {mixer} float32 at full width (d={cfg.d_model}), B={B}: the "
+        f"parallel form vs {T} decode steps, outputs {e_out:.3f} and state {e_st:.3f} of the "
+        f"rtol = atol = {tol:g} bound (max |out| {float(seq.abs().max()):.3f}) | {card}")
+    check(e_out <= 1.0 and e_st <= 1.0, f"[lm-families] {arch} parallel vs step: "
+          f"{e_out}, {e_st} of the bound")
+
+
+def family_train(arch: str, cfg, dev, layers, sizes, card: str) -> dict:
+    """Train steps through `launch.steps.make_train_step` on one repeated
+    `TokenStream` batch: the first loss finite, the last below it."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import default_adam, make_train_step
+
+    B, S, steps = sizes
+    cut = _cut(cfg, layers)
+    shape = ShapeCell("train", S, B, "train")
+    bundle = make_train_step(cut, shape, make_host_mesh(dev), batch=B)
+    params = model_zoo.build(cut).init(0, device=dev)
+    n = _n_params(params)
+    opt = adam_init(params, default_adam(cut))
+    batch = TokenStream(cut, shape, batch=B, device=dev).batch(0)
+    _reset_peak(dev)
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, metrics = bundle.fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+    peak = _peak_gib(dev)
+    step_ms = statistics.median(times[1:]) * 1e3
+    aux = f", aux {float(metrics['aux']):.4f}" if cut.num_experts else ""
+    log(f"[lm-families] train {arch} ({n:,} parameters, {cut.num_layers} of {cfg.num_layers} "
+        f"layers, {cut.param_dtype}, Adam moments {cut.optimizer_state_dtype}): B={B} x {S} "
+        f"positions ({B * S} a step); losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"{aux}; step {step_ms:.1f} ms (median after the first, {times[0] * 1e3:.1f} first), "
+        f"{B * S / step_ms * 1e3:.0f} positions/s, peak {peak:.3f} GiB | {card}")
+    check(all(math.isfinite(x) for x in losses), f"[lm-families] {arch} losses {losses}")
+    check(losses[-1] < losses[0], f"[lm-families] {arch}: the loss did not fall: {losses}")
+    del params, opt, bundle
+    _release(dev)
+    return {"train_step_ms": step_ms, "train_tokens_s": B * S / step_ms * 1e3,
+            "train_peak_gib": peak}
+
+
+def phase_lm_families(device: str = "cuda", preset: str = "full", plan=None,
+                      check_sizes=LM_FAMILY_CHECK, scan_sizes=LM_SCAN_CHECK) -> dict:
+    """The six architectures past the dense decoder, each at full width
+    (`preset="smoke"` and a small plan only to rehearse the phase on the
+    CPU): served, held float32 decode-vs-forward, the recurrent mixers'
+    parallel forms held to their step recurrences, trained. None of it
+    launches B1-B7: every counter stays where it was."""
+    dev = torch.device(device)
+    plan = LM_FAMILIES if plan is None else plan
+    card = card_line() if dev.type == "cuda" else "cpu"
+    before = counts()
+    out = {}
+    for arch, part in plan.items():
+        cfg = get_config(arch) if preset == "full" else get_smoke_config(arch)
+        t0 = time.perf_counter()
+        full_n = _n_params(model_zoo.build(cfg).init(device="meta"))
+        rec = {"full_params": full_n, **family_serve(arch, cfg, dev, *part["serve"], card)}
+        family_decode_check(arch, cfg, dev, part["check_layers"], check_sizes, card)
+        if cfg.family in ("ssm", "hybrid"):
+            family_scan_check(arch, cfg, dev, scan_sizes, card)
+        if part["train"] is not None:
+            rec.update(family_train(arch, cfg, dev, *part["train"], card))
+        log(f"[lm-families] {arch}: {full_n:,} parameters at full depth; cuts: "
+            f"{LM_FAMILY_CUTS[arch] if preset == 'full' else 'smoke config'}; "
+            f"{time.perf_counter() - t0:.1f} s | {card}")
+        out[arch] = rec
+    check(counts() == before, f"[lm-families] an LM family launched a kernel: {counts()} "
+          f"vs {before}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -3142,6 +3399,7 @@ def main() -> int:
         dryrun = phase("dry run", phase_dryrun)
         times = phase("times", phase_times, trained, pallas, sgpr, data)
         phase("lm", phase_lm)
+        phase("lm families", phase_lm_families)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -15,8 +15,10 @@ a composite's dict of part dicts keyed "k0", "k1", ... . Each returns torch
 tensors on `device` (the CUDA device unless ``device="cpu"``), in `dtype`
 when given and in each array's own dtype otherwise.
 
-An LM tree (`models.transformer`'s parameters, its decode states, Adam's
-moments) is nested dicts and tuples of the segments' stacked leaves. A
+An LM tree (`models.transformer`'s or `models.encdec`'s parameters, with
+every family's leaves: attention, RG-LRU, RWKV-6 time- and channel-mix,
+MoE with its float32 router; Adam's moments) is nested dicts and tuples
+of the stacked leaves, carried leaf for leaf in its own dtype. A
 bfloat16 array (`np.asarray` of a JAX bfloat16 array is an ml_dtypes one,
 which `torch.from_numpy` rejects) crosses widened to float32, which holds
 every bfloat16 value exactly, and is cast back.

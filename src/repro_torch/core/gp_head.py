@@ -56,11 +56,10 @@ def head_loss(params: Params, features: torch.Tensor, targets: torch.Tensor,
               *, axis_names: tuple = ()) -> torch.Tensor:
     """Negative collapsed bound per datapoint. The reference's `axis_names`
     (statistics summed over mesh axes under shard_map) waits for
-    `parallel/sharding` (ROADMAP A4.2); the port's data-parallel GP path is
+    `parallel/sharding`; the port's data-parallel GP path is
     `core.distributed`."""
     if axis_names:
-        raise NotImplementedError("head_loss over mesh axes waits for parallel/sharding "
-                                  "(ROADMAP A4.2)")
+        raise NotImplementedError("head_loss over mesh axes waits for parallel/sharding")
     feats = _in_float32(features, params)
     tgts = _as_targets(targets, params)
     kern = RBF(params["Z"].shape[1])

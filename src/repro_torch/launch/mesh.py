@@ -1,9 +1,10 @@
 """Device meshes for the LM launchers (counterpart of `repro.launch.mesh`).
 
 Functions, not module-level constants: importing this module touches no
-device. The port has no model sharding yet (`parallel/sharding` is ROADMAP
-A4.2), so a mesh here only describes the devices a launcher runs on:
-`make_host_mesh` the visible ones as (data = 1, model = n), and
+device. The port has no model sharding yet (that waits for
+`parallel/sharding`), so a mesh here only describes the devices a
+launcher runs on: `make_host_mesh` the visible ones as (data = 1,
+model = n), and
 `make_production_mesh` refuses, as the reference does, where the
 production mesh's device count is not there.
 """
@@ -23,7 +24,7 @@ N_PODS = 2
 @dataclasses.dataclass(frozen=True)
 class HostMesh:
     """The devices a launcher runs on, named by axis. Only the first device
-    runs work until sharding lands (A4.2)."""
+    runs work until `parallel/sharding` lands."""
 
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
@@ -52,7 +53,7 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> HostMesh:
     devices = _devices(device)
     if len(devices) < n:
         raise RuntimeError(f"mesh {shape} needs {n} devices, found {len(devices)}; the port "
-                           f"shards nothing yet (parallel/sharding is ROADMAP A4.2)")
+                           f"shards nothing yet: the production mesh waits for parallel/sharding")
     return HostMesh(shape, axes, devices[:n])
 
 

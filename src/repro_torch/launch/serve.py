@@ -7,8 +7,11 @@
 
 One prefill step builds the KV caches, then a single-token decode step runs
 autoregressively (greedy; the logits interface takes any sampler). Prints
-prefill time and tokens/s, decode tokens/s and a sample. Runs on CUDA
-unless `--device cpu` (a host without a CUDA device raises).
+prefill time and tokens/s, decode tokens/s and a sample. Every family
+serves: the audio family's prompt batch carries encoder frames (encoded
+once at prefill), the vlm family's a prefix of patch embeddings, and the
+recurrent mixers carry their states where attention keeps a KV cache.
+Runs on CUDA unless `--device cpu` (a host without a CUDA device raises).
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@
 A `StepBundle` carries the step function and meta-device stand-ins of its
 arguments (shapes and dtypes, no storage). The reference's bundles also
 carry in/out shardings and `jitted()` / `lower()`: those wait for
-`parallel/sharding` (ROADMAP A4.2); here every step runs eagerly on one
+`parallel/sharding`; here every step runs eagerly on one
 device, and the reference's `constrain=` hooks are the identity.
 """
 from __future__ import annotations

@@ -7,8 +7,10 @@
 `--preset full` uses the architecture's config unchanged, `--preset smoke`
 the reduced same-family config. It runs on the host mesh's first device:
 CUDA unless `--device cpu` (a host without a CUDA device raises). The
-loop checkpoints and resumes through `runtime.train_loop`. Only the dense
-family runs (ROADMAP A4.2 for the rest).
+loop checkpoints and resumes through `runtime.train_loop`. Every family
+runs: the audio family's batches carry encoder frames and the vlm
+family's a prefix of patch embeddings (`data.TokenStream`), and MoE runs
+its single-device path.
 """
 from __future__ import annotations
 

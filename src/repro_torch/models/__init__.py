@@ -1,4 +1,5 @@
-"""The LM side's models (counterpart of `repro.models`): the dense
-decoder's layers, blockwise attention, the segment-stacked transformer and
-the `model_zoo` API. The MoE, RG-LRU, RWKV, encoder-decoder and frontend
-modules are ROADMAP A4.2."""
+"""The LM side's models (counterpart of `repro.models`): the layers,
+blockwise attention, the segment-stacked transformer with its mixers
+(attention, RG-LRU, RWKV-6) and MoE FFN, the encoder-decoder, the
+modality-frontend stubs and the `model_zoo` API. MoE's expert-parallel
+paths wait for `parallel/sharding`."""

@@ -36,7 +36,10 @@ DEFAULT_BLOCK_KV = 512
 NEG_INF = -1e30
 
 
-def attn_init(gen, cfg: ModelConfig, device, d: int | None = None):
+def attn_init(gen, cfg: ModelConfig, device, d: int | None = None, *, cross: bool = False):
+    """wq, wk, wv, wo from width d (cfg.d_model by default). `cross` is the
+    reference's flag for a cross-attention block: its projections are the
+    same four, the keys and values taken from the encoder's output."""
     d = d or cfg.d_model
     hd = cfg.resolved_head_dim()
     H, Kv = cfg.num_heads, cfg.num_kv_heads

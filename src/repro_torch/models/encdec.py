@@ -1,0 +1,240 @@
+"""Encoder-decoder transformer, the whisper-small family (counterpart of
+`repro.models.encdec`).
+
+The mel-spectrogram conv frontend is a stub (`models.frontends`): the
+batch carries precomputed post-conv frame embeddings (B, frames, d); the
+encoder is a bidirectional transformer over them and the decoder adds
+cross-attention. RoPE stands in for whisper's learned positions, as in the
+reference.
+
+Layers are homogeneous, so each stack is one (L, ...) tree of stacked
+leaves, run layer by layer (under `torch.utils.checkpoint` when cfg.remat
+and autograd records, as the reference checkpoints its scan bodies). The
+decode state keeps each layer's self-attention KV cache and the
+cross-attention K/V, computed once at prefill; decode writes its KV slot
+in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_rope, chunked_softmax_xent, dt,
+                                       embed_init, embed_lookup, logits_from,
+                                       mlp_apply, mlp_init, rmsnorm,
+                                       rmsnorm_init)
+from repro_torch.models.transformer import Tree, _resolve, _stack, _unstack
+
+
+def _enc_layer_init(gen, cfg: ModelConfig, device) -> Tree:
+    return {"ln1": rmsnorm_init(cfg.d_model, cfg, device),
+            "attn": attn.attn_init(gen, cfg, device),
+            "ln2": rmsnorm_init(cfg.d_model, cfg, device),
+            "mlp": mlp_init(gen, cfg, device)}
+
+
+def _dec_layer_init(gen, cfg: ModelConfig, device) -> Tree:
+    return {"ln1": rmsnorm_init(cfg.d_model, cfg, device),
+            "attn": attn.attn_init(gen, cfg, device),
+            "lnx": rmsnorm_init(cfg.d_model, cfg, device),
+            "xattn": attn.attn_init(gen, cfg, device, cross=True),
+            "ln2": rmsnorm_init(cfg.d_model, cfg, device),
+            "mlp": mlp_init(gen, cfg, device)}
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Tree:
+    """Random parameters from `seed` on `device` (on the meta device, shapes
+    and dtypes only). Trees cross from the reference through `convert`."""
+    device = _resolve(device)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    return {
+        "embed": embed_init(gen, cfg, device),
+        "enc_layers": _stack([_enc_layer_init(gen, cfg, device)
+                              for _ in range(cfg.encoder_layers)]),
+        "enc_norm": rmsnorm_init(cfg.d_model, cfg, device),
+        "dec_layers": _stack([_dec_layer_init(gen, cfg, device)
+                              for _ in range(cfg.num_layers)]),
+        "dec_norm": rmsnorm_init(cfg.d_model, cfg, device),
+    }
+
+
+def _frame_positions(B: int, F_: int, device) -> torch.Tensor:
+    return torch.arange(F_, dtype=torch.int32, device=device)[None].expand(B, F_)
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig, mode: str = "train") -> torch.Tensor:
+    """frames: (B, F, d) stub-frontend embeddings -> (B, F, d) encodings."""
+    B, F_, _ = frames.shape
+    x = frames.to(dt(cfg, "compute"))
+    positions = _frame_positions(B, F_, x.device)
+    kv_map = attn.head_to_kv_map(cfg, 1)
+    layers = _unstack(params["enc_layers"], cfg.encoder_layers)
+
+    def body(xc, i):
+        layer = layers[i]
+        h = rmsnorm(layer["ln1"], xc, cfg.norm_eps)
+        q, k, v = attn._qkv(layer["attn"], h, positions, cfg)
+        out = attn.blockwise_attention(q, k, v, positions, positions, window=-1,
+                                       causal=False, mode=mode, kv_map=kv_map)
+        out = attn._unpad_heads(out, cfg, 1) @ layer["attn"]["wo"].to(out.dtype)
+        xc = xc + out.to(xc.dtype)
+        h = rmsnorm(layer["ln2"], xc, cfg.norm_eps)
+        return xc + mlp_apply(layer["mlp"], h, cfg).to(xc.dtype)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.encoder_layers):
+        x = checkpoint(body, x, i, use_reentrant=False) if remat else body(x, i)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+class DecState(NamedTuple):
+    self_kv: attn.KVCache  # stacked (L, ...)
+    cross_k: torch.Tensor  # (L, B, F, Kv, hd), computed at prefill
+    cross_v: torch.Tensor
+    enc_pos: torch.Tensor  # (B, F) int32
+
+
+def _cross_kv(layer, enc_out: torch.Tensor, enc_pos: torch.Tensor, cfg: ModelConfig):
+    cdt = dt(cfg, "compute")
+    B, F_, _ = enc_out.shape
+    hd = cfg.resolved_head_dim()
+    k = (enc_out.to(cdt) @ layer["xattn"]["wk"].to(cdt)).reshape(B, F_, cfg.num_kv_heads, hd)
+    v = (enc_out.to(cdt) @ layer["xattn"]["wv"].to(cdt)).reshape(B, F_, cfg.num_kv_heads, hd)
+    return apply_rope(k, enc_pos, cfg.rope_theta), v
+
+
+def _decoder(params, x, positions, enc_out, enc_pos, cfg: ModelConfig, *,
+             states: DecState | None, cur_pos, mode: str):
+    """mode "train" without states: training; "train" with states: prefill,
+    filling them in place; "decode": one token against them."""
+    cdt = dt(cfg, "compute")
+    hd = cfg.resolved_head_dim()
+    H = cfg.num_heads
+    kv_map = attn.head_to_kv_map(cfg, 1)
+    layers = _unstack(params["dec_layers"], cfg.num_layers)
+    xmode = "train" if (mode == "train" and states is None) else "infer"
+
+    def body(xc, i):
+        layer = layers[i]
+        kv = None if states is None else attn.KVCache(
+            states.self_kv.k[i], states.self_kv.v[i], states.self_kv.pos[i])
+        # self attention
+        h = rmsnorm(layer["ln1"], xc, cfg.norm_eps)
+        if mode == "train":
+            if kv is not None:
+                out, (k, v) = attn.attn_apply_train(layer["attn"], h, positions, cfg,
+                                                    return_kv=True)
+                attn.cache_from_prefill(kv, k, v, positions, -1)
+            else:
+                out = attn.attn_apply_train(layer["attn"], h, positions, cfg)
+        else:
+            out, _ = attn.attn_apply_decode(layer["attn"], h, cur_pos, kv, cfg)
+        xc = xc + out.to(xc.dtype)
+
+        # cross attention
+        h = rmsnorm(layer["lnx"], xc, cfg.norm_eps)
+        B, S, _ = h.shape
+        q = (h.to(cdt) @ layer["xattn"]["wq"].to(cdt)).reshape(B, S, H, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        if mode == "train":
+            kx, vx = _cross_kv(layer, enc_out, enc_pos, cfg)
+            if states is not None:
+                states.cross_k[i].copy_(kx)
+                states.cross_v[i].copy_(vx)
+        else:
+            kx, vx = states.cross_k[i], states.cross_v[i]
+        out = attn.blockwise_attention(q, kx, vx, positions, enc_pos, window=-1,
+                                       causal=False, mode=xmode, kv_map=kv_map)
+        out = attn._unpad_heads(out, cfg, 1) @ layer["xattn"]["wo"].to(cdt)
+        xc = xc + out.to(xc.dtype)
+
+        # mlp
+        h = rmsnorm(layer["ln2"], xc, cfg.norm_eps)
+        return xc + mlp_apply(layer["mlp"], h, cfg).to(xc.dtype)
+
+    remat = cfg.remat and mode == "train" and states is None and torch.is_grad_enabled()
+    for i in range(cfg.num_layers):
+        x = checkpoint(body, x, i, use_reentrant=False) if remat else body(x, i)
+    return rmsnorm(params["dec_norm"], x, cfg.norm_eps), states
+
+
+def _causal_labels(batch: Dict[str, torch.Tensor], device) -> tuple:
+    tokens = batch["tokens"]
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    mask = batch.get("loss_mask")
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=device) \
+        if mask is None else mask.to(torch.float32).clone()
+    mask[:, -1] = 0.0
+    return labels, mask
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> tuple:
+    """Next-token CE of the decoder given the frames. batch: tokens (B, S),
+    encoder_frames (B, F, d). Returns (loss, {"ce", "aux"}), aux = 0."""
+    enc_out = encode(params, batch["encoder_frames"], cfg, mode="train")
+    B, F_, _ = enc_out.shape
+    enc_pos = _frame_positions(B, F_, enc_out.device)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = embed_lookup(params["embed"], tokens, cfg)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    x, _ = _decoder(params, x, positions, enc_out, enc_pos, cfg, states=None, cur_pos=None,
+                    mode="train")
+    labels, mask = _causal_labels(batch, x.device)
+    ce = chunked_softmax_xent(x, labels, mask, params["embed"], None, cfg)
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+
+def init_decode_state(cfg: ModelConfig, B: int, S_ctx: int, *, device="cuda") -> DecState:
+    device = _resolve(device)
+    cdt = dt(cfg, "compute")
+    hd = cfg.resolved_head_dim()
+    L, F_, Kv = cfg.num_layers, cfg.encoder_frames, cfg.num_kv_heads
+    one = attn.init_cache(cfg, B, S_ctx, -1, cdt, device)
+    return DecState(
+        self_kv=attn.KVCache(*(t.unsqueeze(0).repeat(L, *([1] * t.ndim)) for t in one)),
+        cross_k=torch.zeros((L, B, F_, Kv, hd), dtype=cdt, device=device),
+        cross_v=torch.zeros((L, B, F_, Kv, hd), dtype=cdt, device=device),
+        enc_pos=torch.zeros((B, F_), dtype=torch.int32, device=device),
+    )
+
+
+def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            total_slots: int | None = None):
+    """Encode the frames and run the prompt, building the decode state;
+    returns (last_logits, states). total_slots: self-attention KV capacity
+    (defaults to the prompt length + 1)."""
+    enc_out = encode(params, batch["encoder_frames"], cfg, mode="infer")
+    B, F_, _ = enc_out.shape
+    enc_pos = _frame_positions(B, F_, enc_out.device)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = embed_lookup(params["embed"], tokens, cfg)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    states = init_decode_state(cfg, B, total_slots or S + 1, device=x.device)
+    states.enc_pos.copy_(enc_pos)
+    x, states = _decoder(params, x, positions, enc_out, enc_pos, cfg, states=states,
+                         cur_pos=None, mode="train")
+    logits = logits_from(params["embed"], None, x[:, -1:, :], cfg)
+    return logits[:, 0], states
+
+
+def decode_step(params, tokens: torch.Tensor, cur_pos, states: DecState, cfg: ModelConfig):
+    """One-token serve step; returns (logits (B, V) float32, states), the
+    self-attention caches advanced in place."""
+    x = embed_lookup(params["embed"], tokens, cfg)
+    B = x.shape[0]
+    cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=x.device).reshape(())
+    positions = cur.expand(B, 1)
+    x, states = _decoder(params, x, positions, None, states.enc_pos, cfg, states=states,
+                         cur_pos=cur, mode="decode")
+    logits = logits_from(params["embed"], None, x, cfg)
+    return logits[:, 0].float(), states

@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 Tree = Any
 
@@ -31,18 +31,16 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    """The dense family's model; every other family (MoE, RG-LRU, RWKV,
-    audio, VLM) raises NotImplementedError (ROADMAP A4.2)."""
-    transformer.require_dense(cfg)
+    """The model of cfg's family: the audio family's encoder-decoder
+    (`encdec`), every other family's decoder (`transformer`)."""
+    mod = encdec if cfg.family == "audio" else transformer
     return Model(
         cfg=cfg,
-        init=lambda seed=0, *, device="cuda": transformer.init_params(cfg, seed=seed,
-                                                                      device=device),
-        train_loss=lambda p, b: transformer.train_loss(p, b, cfg),
-        prefill=lambda p, b, total_slots=None: transformer.prefill(p, b, cfg,
-                                                                   total_slots=total_slots),
-        decode_step=lambda p, t, pos, st: transformer.decode_step(p, t, pos, st, cfg),
-        init_decode_state=lambda B, S, *, device="cuda": transformer.init_decode_state(
+        init=lambda seed=0, *, device="cuda": mod.init_params(cfg, seed=seed, device=device),
+        train_loss=lambda p, b: mod.train_loss(p, b, cfg),
+        prefill=lambda p, b, total_slots=None: mod.prefill(p, b, cfg, total_slots=total_slots),
+        decode_step=lambda p, t, pos, st: mod.decode_step(p, t, pos, st, cfg),
+        init_decode_state=lambda B, S, *, device="cuda": mod.init_decode_state(
             cfg, B, S, device=device),
     )
 

@@ -1,8 +1,9 @@
 """Decoder-only LM assembly with pattern-period layer segments
-(counterpart of `repro.models.transformer`, the dense family).
+(counterpart of `repro.models.transformer`).
 
-Heterogeneous layer patterns (gemma3's 5 local : 1 global) tile across
-num_layers and split into *segments* of repeated periods —
+Heterogeneous layer patterns (gemma3's 5 local : 1 global, recurrentgemma's
+rglru rglru attn) tile across num_layers and split into *segments* of
+repeated periods —
 
     gemma3-4b (34L, pattern LLLLLG):  [5 x (L L L L L G)] + [1 x (L L L L)]
 
@@ -14,8 +15,12 @@ period's layers on each repeat's slice of the stacked leaves (one
 Under cfg.remat in training, each repeat runs under
 `torch.utils.checkpoint`, as the reference checkpoints its scan body.
 
-Only the dense family runs here: the MoE, RG-LRU, RWKV and encoder-decoder
-/ multimodal paths are ROADMAP A4.2 and raise NotImplementedError.
+A layer's temporal mixer is attention, RG-LRU (`models.rglru`) or the
+RWKV-6 time-mix (`models.rwkv6`, with its channel-mix in place of the
+MLP); a MoE config's FFN is `models.moe` (plus the dense MLP as a
+residual where cfg.moe_dense_residual). A `frontend_embeds` batch entry
+(the vlm family) is a multimodal prefix before the tokens. The
+encoder-decoder family is `models.encdec`.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (chunked_softmax_xent, dt, embed_init,
                                        embed_lookup, logits_from, mlp_apply,
                                        mlp_init, rmsnorm, rmsnorm_init,
@@ -34,25 +42,6 @@ from repro_torch.models.layers import (chunked_softmax_xent, dt, embed_init,
 
 Tree = Any
 AUX_LOSS_WEIGHT = 0.01
-NOT_PORTED = "ROADMAP A4.2"
-
-
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless the port runs cfg's family."""
-    mixers = set(cfg.layer_mixers())
-    if cfg.family != "dense" or cfg.num_experts or mixers != {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (mixers {sorted(mixers)}, "
-            f"{cfg.num_experts} experts) is not ported yet; the port runs the dense "
-            f"decoder only, the rest is {NOT_PORTED}")
-
-
-def _require_dense_layer(cfg: ModelConfig, mixer: str) -> None:
-    if mixer != "attn" or cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: a layer with mixer {mixer!r} and {cfg.num_experts} experts is "
-            f"not ported yet; the port runs dense attention layers only, the rest is "
-            f"{NOT_PORTED}")
 
 
 class Segment(NamedTuple):
@@ -82,42 +71,101 @@ def segments(cfg: ModelConfig) -> List[Segment]:
 # ---------------------------------------------------------------------------
 
 def _layer_init(gen, cfg: ModelConfig, mixer: str, device) -> Tree:
-    _require_dense_layer(cfg, mixer)
     d = cfg.d_model
-    return {"ln1": rmsnorm_init(d, cfg, device), "ln2": rmsnorm_init(d, cfg, device),
-            "attn": attn.attn_init(gen, cfg, device), "mlp": mlp_init(gen, cfg, device)}
+    p: Dict[str, Tree] = {"ln1": rmsnorm_init(d, cfg, device),
+                          "ln2": rmsnorm_init(d, cfg, device)}
+    if mixer == "attn":
+        p["attn"] = attn.attn_init(gen, cfg, device)
+    elif mixer == "rglru":
+        p["rglru"] = rglru_mod.rglru_init(gen, cfg, device)
+    elif mixer == "rwkv":
+        p["rwkv"] = rwkv_mod.timemix_init(gen, cfg, device)
+    else:
+        raise ValueError(mixer)
+    if mixer == "rwkv":
+        p["cmix"] = rwkv_mod.chanmix_init(gen, cfg, device)
+    elif cfg.num_experts:
+        p["moe"] = moe_mod.moe_init(gen, cfg, device)
+        if cfg.moe_dense_residual:
+            p["mlp"] = mlp_init(gen, cfg, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, device)
+    return p
 
 
 class LayerState(NamedTuple):
-    """Decode-time state for one layer: the dense family's KV cache (the
-    reference's recurrent-mixer fields come with A4.2)."""
+    """Decode-time state for one layer (exactly one of the first three
+    fields is set, by the layer's mixer; rwkv layers also carry the
+    channel-mix's last token)."""
 
     kv: Optional[attn.KVCache]
+    rglru: Optional[rglru_mod.RGLRUState]
+    rwkv_tm: Optional[rwkv_mod.TimeMixState]
+    cmix_prev: Optional[torch.Tensor]
+
+
+def _layer_state_init(cfg: ModelConfig, mixer: str, window: int, B: int, S_ctx: int,
+                      device) -> LayerState:
+    cdt = dt(cfg, "compute")
+    if mixer == "attn":
+        return LayerState(attn.init_cache(cfg, B, S_ctx, window, cdt, device), None, None, None)
+    if mixer == "rglru":
+        return LayerState(None, rglru_mod.rglru_state_init(cfg, B, cdt, device), None, None)
+    return LayerState(None, None, rwkv_mod.timemix_state_init(cfg, B, cdt, device),
+                      torch.zeros((B, cfg.d_model), dtype=cdt, device=device))
 
 
 def _layer_apply(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                  *, mixer: str, window: int, mode: str, state: Optional[LayerState],
                  cur_pos) -> tuple:
-    """Returns (x_out, new_state, aux_loss)."""
-    _require_dense_layer(cfg, mixer)
+    """Returns (x_out, new_state, aux_loss). mode "train" with a state is the
+    prefill; "decode" runs one token against the state."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     new_state = state
-    if mode == "train":
-        if state is not None:  # prefill: also build the cache
-            out, (k, v) = attn.attn_apply_train(params["attn"], h, positions, cfg,
-                                                window=window, return_kv=True)
-            new_state = state._replace(kv=attn.cache_from_prefill(state.kv, k, v,
-                                                                  positions, window))
+    if mixer == "attn":
+        if mode == "train":
+            if state is not None:  # prefill: also build the cache
+                out, (k, v) = attn.attn_apply_train(params["attn"], h, positions, cfg,
+                                                    window=window, return_kv=True)
+                new_state = state._replace(kv=attn.cache_from_prefill(state.kv, k, v,
+                                                                      positions, window))
+            else:
+                out = attn.attn_apply_train(params["attn"], h, positions, cfg, window=window)
         else:
-            out = attn.attn_apply_train(params["attn"], h, positions, cfg, window=window)
+            out, kv = attn.attn_apply_decode(params["attn"], h, cur_pos, state.kv, cfg,
+                                             window=window)
+            new_state = state._replace(kv=kv)
+    elif mixer == "rglru":
+        st = state.rglru if state is not None else rglru_mod.rglru_state_init(
+            cfg, x.shape[0], x.dtype, x.device)
+        fn = rglru_mod.rglru_apply_train if mode == "train" else rglru_mod.rglru_apply_decode
+        out, st = fn(params["rglru"], h, st, cfg)
+        new_state = state._replace(rglru=st) if state is not None else None
+    elif mixer == "rwkv":
+        st = state.rwkv_tm if state is not None else rwkv_mod.timemix_state_init(
+            cfg, x.shape[0], x.dtype, x.device)
+        fn = rwkv_mod.timemix_apply_chunked if mode == "train" else rwkv_mod.timemix_apply_decode
+        out, st = fn(params["rwkv"], h, st, cfg)
+        new_state = state._replace(rwkv_tm=st) if state is not None else None
     else:
-        out, kv = attn.attn_apply_decode(params["attn"], h, cur_pos, state.kv, cfg,
-                                         window=window)
-        new_state = state._replace(kv=kv)
+        raise ValueError(mixer)
     x = x + out.to(x.dtype)
+
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    x = x + mlp_apply(params["mlp"], h, cfg).to(x.dtype)
+    if mixer == "rwkv":
+        prev = state.cmix_prev if state is not None else torch.zeros_like(h[:, -1])
+        out, prev = rwkv_mod.chanmix_apply(params["cmix"], h, prev, cfg)
+        if state is not None:
+            new_state = new_state._replace(cmix_prev=prev)
+    elif cfg.num_experts:
+        moe_out = moe_mod.moe_apply(params["moe"], h, cfg)
+        out, aux = moe_out.y, moe_out.aux_loss
+        if cfg.moe_dense_residual:
+            out = out + mlp_apply(params["mlp"], h, cfg)
+    else:
+        out = mlp_apply(params["mlp"], h, cfg)
+    x = x + out.to(x.dtype)
     return x, new_state, aux
 
 
@@ -129,6 +177,8 @@ def _stack(trees: list) -> Tree:
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
+    if len(trees) == 1:  # a lone layer: a (1, ...) view, no second copy of it
+        return first.unsqueeze(0)
     return torch.stack(trees)
 
 
@@ -139,6 +189,26 @@ def _unstack(tree: Tree, n: int) -> list:
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
     return list(torch.unbind(tree, 0))
+
+
+def _state_map(fn, st):
+    """`fn` over the tensors of a (possibly nested) state NamedTuple; None
+    fields stay None."""
+    if st is None:
+        return None
+    if isinstance(st, tuple):
+        return type(st)(*(_state_map(fn, t) for t in st))
+    return fn(st)
+
+
+def _store(view, new) -> None:
+    """Write a layer's new state into its slice of the stacked states; a
+    field advanced in place (a KV cache) is that slice already."""
+    if isinstance(view, tuple):
+        for v, n in zip(view, new):
+            _store(v, n)
+    elif view is not None and view is not new:
+        view.copy_(new)
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +227,6 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Tree:
     the shapes and dtypes alone, nothing allocated). The draws are the
     port's own: `jax.random` has no torch counterpart, so trees cross from
     the reference through `convert`, not through a seed."""
-    require_dense(cfg)
     device = _resolve(device)
     gen = None
     if device.type != "meta":
@@ -179,7 +248,8 @@ def _backbone(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: Model
               *, mode: str, states: Optional[Tree], cur_pos):
     """Runs all segments. states (if given) mirrors the segment structure:
     states[f"seg{si}"] = tuple over period positions of stacked LayerStates,
-    filled (prefill) or advanced (decode) in place."""
+    filled (prefill) or advanced (decode) in place: KV caches by the
+    attention's own writes, recurrent states copied into their slices."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(segments(cfg)):
         per_pos = [_unstack(p, seg.repeat) for p in params[f"seg{si}"]]  # [j][r]
@@ -189,12 +259,13 @@ def _backbone(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: Model
             aux_r = torch.zeros((), dtype=torch.float32, device=xc.device)
             for j in range(len(_seg.windows)):
                 st = None
-                if _seg_state is not None:
-                    kv = _seg_state[j].kv
-                    st = LayerState(attn.KVCache(kv.k[r], kv.v[r], kv.pos[r]))
-                xc, _, aux = _layer_apply(_per_pos[j][r], xc, positions, cfg,
-                                          mixer=_seg.mixers[j], window=_seg.windows[j],
-                                          mode=mode, state=st, cur_pos=cur_pos)
+                if _seg_state is not None:  # repeat r's slice of the stacked state
+                    st = _state_map(lambda t: t[r], _seg_state[j])
+                xc, new_st, aux = _layer_apply(_per_pos[j][r], xc, positions, cfg,
+                                               mixer=_seg.mixers[j], window=_seg.windows[j],
+                                               mode=mode, state=st, cur_pos=cur_pos)
+                if st is not None:
+                    _store(st, new_st)
                 aux_r = aux_r + aux
             return xc, aux_r
 
@@ -213,18 +284,16 @@ def _backbone(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: Model
 
 
 def init_decode_state(cfg: ModelConfig, B: int, S_ctx: int, *, device="cuda") -> Tree:
-    """Stacked per-segment decode states (KV caches), zero-filled, positions
-    -1 (empty)."""
-    require_dense(cfg)
+    """Stacked per-segment decode states (KV caches with positions -1 =
+    empty, zero recurrent states)."""
     device = _resolve(device)
-    cdt = dt(cfg, "compute")
     states: Dict[str, Tree] = {}
     for si, seg in enumerate(segments(cfg)):
         per_pos = []
         for j in range(len(seg.windows)):
-            one = attn.init_cache(cfg, B, S_ctx, seg.windows[j], cdt, device)
-            per_pos.append(LayerState(attn.KVCache(
-                *(t.unsqueeze(0).repeat(seg.repeat, *([1] * t.ndim)) for t in one))))
+            one = _layer_state_init(cfg, seg.mixers[j], seg.windows[j], B, S_ctx, device)
+            per_pos.append(_state_map(
+                lambda t, n=seg.repeat: t.unsqueeze(0).repeat(n, *([1] * t.ndim)), one))
         states[f"seg{si}"] = tuple(per_pos)
     return states
 
@@ -234,21 +303,26 @@ def init_decode_state(cfg: ModelConfig, B: int, S_ctx: int, *, device="cuda") ->
 # ---------------------------------------------------------------------------
 
 def _input_embeddings(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Token embeddings (the multimodal prefix of `frontend_embeds` is A4.2)."""
+    """Token embeddings, after the multimodal prefix of `frontend_embeds`
+    (stub frontends) where the batch has one, scaled by sqrt(d) as the
+    token embeddings are."""
+    x = embed_lookup(params["embed"], batch["tokens"], cfg)
     if "frontend_embeds" in batch:
-        raise NotImplementedError(f"frontend_embeds: the multimodal prefix is {NOT_PORTED}")
-    return embed_lookup(params["embed"], batch["tokens"], cfg)
+        fe = batch["frontend_embeds"].to(x.dtype) * (cfg.d_model**0.5)
+        x = torch.cat([fe, x], dim=1)
+    return x
 
 
 def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> tuple:
-    """Next-token CE (+ the MoE aux term, 0 for the dense family).
-    batch: tokens (B, S). Returns (loss, {"ce", "aux"})."""
-    require_dense(cfg)
+    """Next-token CE over the text positions (+ the MoE aux term, 0
+    without experts). batch: tokens (B, S) [, frontend_embeds (B, P, d)].
+    Returns (loss, {"ce", "aux"})."""
     tokens = batch["tokens"]
     x = _input_embeddings(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     x, _, aux = _backbone(params, x, positions, cfg, mode="train", states=None, cur_pos=None)
+    x = x[:, S - tokens.shape[1]:]  # the text after the frontend prefix
     labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
     mask = batch.get("loss_mask")
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device) \
@@ -264,7 +338,6 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Full-context forward building decode caches; returns (last_logits,
     states). total_slots: KV-cache capacity (>= prefill length + planned
     decode steps); defaults to prefill length + 1."""
-    require_dense(cfg)
     x = _input_embeddings(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
@@ -279,7 +352,6 @@ def decode_step(params, tokens: torch.Tensor, cur_pos, states: Tree, cfg: ModelC
     """One-token serve step. tokens: (B, 1); cur_pos: absolute position (an
     int or a 0-dim integer tensor). Returns (logits (B, V) float32, states),
     the states advanced in place."""
-    require_dense(cfg)
     x = embed_lookup(params["embed"], tokens, cfg)
     B = x.shape[0]
     cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=x.device).reshape(())

@@ -113,12 +113,9 @@ def adam_update(grads: Tree, state: AdamState, params: Tree,
     """Returns (new_params, new_state, pre-clip grad norm)."""
     step = state.step + 1
     gnorm = global_norm(grads)
+    scale = None
     if config.clip_norm is not None:
         scale = torch.clamp(config.clip_norm / (gnorm + 1e-9), max=1.0)
-        # promoted with the float32 scale, as the reference's arrays are: a
-        # bfloat16 gradient is clipped in float32 (torch would keep bf16)
-        grads = tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale,
-                         grads)
 
     lr = config.lr(step) if callable(config.lr) else config.lr
     if isinstance(lr, torch.Tensor):
@@ -138,6 +135,11 @@ def adam_update(grads: Tree, state: AdamState, params: Tree,
     flat_v = flatten(state.v)[1]
     new_p, new_m, new_v = [], [], []
     for p, g, m, v, name in zip(flat_p, flat_g, flat_m, flat_v, paths):
+        if scale is not None:
+            # clipped leaf by leaf (no second copy of every gradient), promoted
+            # with the float32 scale as the reference's arrays are: a bfloat16
+            # gradient is clipped in float32 (torch would keep bf16)
+            g = g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
         g32 = g.float()
         m_new = b1 * m.float() + (1.0 - b1) * g32
         v_new = b2 * v.float() + (1.0 - b2) * g32 * g32

@@ -13,9 +13,8 @@
 Checkpoints are the port's `checkpoint.manager` layout, whose keys and
 files are the reference's: {"params", "opt"} with extra {"step", "data"},
 so a loop of either package resumes the other's. The reference's
-`shardings=` (restore onto a device mesh) waits for `parallel/sharding`
-(ROADMAP A4.2): every leaf is restored onto the device of the loop's
-parameters.
+`shardings=` (restore onto a device mesh) waits for `parallel/sharding`:
+every leaf is restored onto the device of the loop's parameters.
 """
 from __future__ import annotations
 

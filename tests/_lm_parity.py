@@ -50,3 +50,73 @@ def assert_trees_close(got, want, tol: float, what: str = "") -> None:
         assert tuple(g.shape) == tuple(np.shape(w)), (what, path, g.shape, np.shape(w))
         err = rel_err(g, np.asarray(w, np.float64))
         assert err <= tol, (what, path, err)
+
+
+def lm_batch(cfg, B: int = 2, S: int = 64, seed: int = 0) -> dict:
+    """A numpy batch for `cfg`, drawn from `seed`: tokens (B, S), plus the
+    audio family's encoder frames and the vlm family's prefix embeddings
+    (standard normals, float32)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.family == "audio":
+        out["encoder_frames"] = rng.standard_normal(
+            (B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    if cfg.frontend_tokens:
+        out["frontend_embeds"] = rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def jax_batch(batch: dict) -> dict:
+    return {k: jax.numpy.asarray(v) for k, v in batch.items()}
+
+
+def torch_batch(batch: dict) -> dict:
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def routing_of(jm, tm, jp, tp, batch: dict) -> list:
+    """Every MoE layer's routing in both packages on `batch`, in layer order:
+    [(reference top_e, port top_e, the reference's smallest gap between a
+    token's k-th and (k+1)-th router probabilities)]. The reference runs
+    eagerly (`jax.disable_jit`) so its layers' inputs are concrete."""
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+
+    E, k = tm.cfg.num_experts, tm.cfg.num_experts_per_tok
+    jrec, trec = [], []
+    jorig, torig = jmoe.moe_apply, tmoe.moe_apply
+
+    def jwrap(params, x, cfg, constrain=lambda t, s: t):
+        xt = x.reshape(-1, x.shape[-1])
+        probs = jax.nn.softmax(xt.astype(jax.numpy.float32) @ params["router"], axis=-1)
+        srt = np.sort(np.asarray(probs), axis=-1)[:, ::-1]
+        gap = float(np.min(srt[:, k - 1] - srt[:, k])) if k < E else float("inf")
+        jrec.append((np.asarray(jmoe._route(params, xt, E, k)[1]), gap))
+        return jorig(params, x, cfg, constrain)
+
+    def twrap(params, x, cfg):
+        trec.append(tmoe._route(params, x.reshape(-1, x.shape[-1]), E, k)[1].numpy())
+        return torig(params, x, cfg)
+
+    jmoe.moe_apply, tmoe.moe_apply = jwrap, twrap
+    try:
+        with jax.disable_jit():
+            jm.train_loss(jp, jax_batch(batch))
+        with torch.no_grad():
+            tm.train_loss(tp, torch_batch(batch))
+    finally:
+        jmoe.moe_apply, tmoe.moe_apply = jorig, torig
+    assert len(jrec) == len(trec) == tm.cfg.num_layers
+    return [(je, te, gap) for (je, gap), te in zip(jrec, trec)]
+
+
+def assert_same_routing(jm, tm, jp, tp, batch: dict) -> None:
+    """The port routes every token of every MoE layer to the reference's
+    experts, in the reference's order."""
+    for layer, (je, te, gap) in enumerate(routing_of(jm, tm, jp, tp, batch)):
+        assert np.array_equal(je, te), (
+            f"{tm.cfg.name} layer {layer}: routing differs at "
+            f"{int(np.sum(np.any(je != te, axis=-1)))} tokens; the smallest gap between a "
+            f"k-th and a (k+1)-th router probability is {gap:.3e} (a gap within float32 "
+            f"rounding of the hidden state is a near-tie, not a fault)")

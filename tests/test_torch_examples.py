@@ -42,9 +42,32 @@ def test_torch_temporal_quickstart(capsys):
     assert "temporal quickstart OK" in capsys.readouterr().out
 
 
+def test_torch_serve_quickstart(capsys):
+    before, after = _load("torch_serve_quickstart").main(
+        ["--device", "cpu", "--n", "1000", "--steps", "60"])
+    assert after < 0.5 * before and after < 0.2
+    assert "serve quickstart OK" in capsys.readouterr().out
+
+
+def test_torch_gp_head_uncertainty(capsys):
+    v_in, v_ood = _load("torch_gp_head_uncertainty").main(["--device", "cpu", "--steps", "60"])
+    assert v_ood > v_in
+    assert "GP head is calibrated" in capsys.readouterr().out
+
+
+def test_torch_train_lm(tmp_path, capsys):
+    final = _load("torch_train_lm").main(
+        ["--device", "cpu", "--steps", "6", "--batch", "2", "--seq", "32", "--layers", "2",
+         "--ckpt-dir", str(tmp_path / "ck")])
+    assert np.isfinite(final["loss"])
+    assert "done: final loss" in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="parallel/sharding"):
+        _load("torch_train_lm").main(["--device", "cpu", "--mesh", "pod"])
+
+
 def test_examples_default_to_the_card():
-    for name in ("torch_quickstart", "torch_gplvm_synthetic",
-                 "torch_temporal_quickstart"):
+    for name in ("torch_quickstart", "torch_gplvm_synthetic", "torch_temporal_quickstart",
+                 "torch_serve_quickstart", "torch_gp_head_uncertainty", "torch_train_lm"):
         src = (EXAMPLES / f"{name}.py").read_text()
         assert 'ap.add_argument("--device", default="cuda")' in src, name
         assert "import jax" not in src and "from repro." not in src, name

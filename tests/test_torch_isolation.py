@@ -46,6 +46,10 @@ NEW_MODULES = {
     "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.launch.serve",
     "repro_torch.runtime", "repro_torch.runtime.train_loop", "repro_torch.core.gp_head",
     "repro_torch.core.gp_kernels",
+    # the remaining single-device families and optim/compression
+    "repro_torch.models.rglru", "repro_torch.models.rwkv6", "repro_torch.models.moe",
+    "repro_torch.models.encdec", "repro_torch.models.frontends",
+    "repro_torch.optim.compression",
 }
 
 

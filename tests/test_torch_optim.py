@@ -150,3 +150,34 @@ def test_fit_lbfgs_matches_jax():
     assert abs(tf - jf) <= 1e-10 * abs(jf)
     assert _rel(tp["x"], jp["x"]) <= 1e-8
     assert tp["x"].dtype == torch.float64
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("ratio", [0.05, 0.2, 0.5])
+def test_topk_compression_error_feedback_conserves_signal(seed, ratio):
+    """The reference's property (`tests/test_optim.py`): over six steps, the
+    compressed gradients sent plus the final residual sum to the raw
+    gradients, each step sends at most ratio * n (+1 on a tie) nonzeros,
+    and each step's output and residual are the reference's."""
+    from repro.optim import compression as jcomp
+    from repro_torch.optim import compression_init, topk_compress_decompress
+
+    rng = np.random.RandomState(seed)
+    grads = [{"w": rng.randn(64).astype(np.float32), "b": {"m": rng.randn(3, 5).astype(np.float32)}}
+             for _ in range(6)]
+    state = compression_init({"w": torch.zeros(64), "b": {"m": torch.zeros(3, 5)}})
+    jstate = jcomp.compression_init(jax.tree.map(jnp.asarray, grads[0]))
+    sent_total = np.zeros(64, np.float32)
+    for g in grads:
+        sent, state = topk_compress_decompress(jax.tree.map(torch.as_tensor, g), state,
+                                               ratio=ratio)
+        jsent, jstate = jcomp.topk_compress_decompress(jax.tree.map(jnp.asarray, g), jstate,
+                                                       ratio=ratio)
+        for got, want in zip(flatten(sent)[1] + flatten(state.residual)[1],
+                             jax.tree.leaves(jsent) + jax.tree.leaves(jstate.residual)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+        sent_total += sent["w"].numpy()
+        assert int((sent["w"] != 0).sum()) <= max(1, int(ratio * 64)) + 1
+    raw_total = sum(g["w"] for g in grads)
+    np.testing.assert_allclose(sent_total + state.residual["w"].numpy(), raw_total,
+                               rtol=1e-4, atol=1e-5)
