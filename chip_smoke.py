@@ -208,6 +208,33 @@ Phases (any failure exits non-zero and prints no result):
    recurrence over 128 tokens in float32 at the CPU tests' 2e-4 / 3e-4.
    Sizes and cuts are `LM_FAMILIES` / `LM_FAMILY_CUTS`. No B1-B7 launch.
 
+20. The LM sharded over a device mesh (`[mesh]` lines): eight spawned gloo
+   ranks sharing the card (NCCL refuses a second rank on one card; gloo's
+   functional all-gather for CUDA tensors goes through the host,
+   `parallel.collectives`), the (2, 2) and (1, 4) meshes over ranks 0-3,
+   (4, 2) over all eight. smollm-360m at full width and depth in bf16 on
+   (data 2, model 2): each rank's share of the parameter bytes, one train
+   step at 8 x 512 through `launch.steps.make_train_step(...).jitted()`
+   (its loss within 1e-2 of the single process's) and `launch.serve.
+   generate` at 2 x 512 + 8; the step's first moment (the clipped
+   gradients) and new parameters and the prefill logits held per leaf at
+   the geometric mean of two single-process readings, bf16's noise
+   against float32 and a control (the step on half the batch; the update
+   lost; the prompt one token short), which must lie 4x apart
+   (MESH_SEPARATION);
+   the same widths in float32 at 8 of 32 layers, the step through the same
+   entry point, held at the reference's EP bounds: the loss (1e-2), every
+   first-moment leaf and every parameter after the step (1e-3 of the
+   leaf's max), the prefill and 8 teacher-forced decode steps' logits
+   (1e-2). One moonshot-v1-16b-a3b MoE layer at full width (float32,
+   capacity factor 8) on (1, 4) through `moe_apply`: at 4 x 256 tokens the
+   all-to-all path, at 4 x 1 the all-reduce path, each held to
+   `moe_apply_dense` on one process (loss 1e-2, gradients 1e-3). The
+   elastic round trip at smollm's widths, 4 of 32 layers: saved from
+   (2, 2), restored with `runtime.elastic.reshard_for_mesh` on (4, 2),
+   saved there and restored on (2, 2), every leaf bitwise. Times are
+   gloo-bound and no speed figure. No B1-B7 launch.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -262,7 +289,13 @@ from repro_torch.data import TokenStream  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import model_zoo, transformer  # noqa: E402
-from repro_torch.runtime import TrainLoop  # noqa: E402
+from repro_torch.runtime import TrainLoop, reshard_for_mesh  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.launch import mesh as lm_mesh  # noqa: E402
+from repro_torch.launch import steps as lm_steps  # noqa: E402
+from repro_torch.launch.mesh import LocalMesh  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.parallel import collectives, sharding  # noqa: E402
 
 SEED = 0
 PAPER = (1_000_000, 100, 1, 3)  # N, M, Q, D: paper §4 (Q=1, M=100, D=3, 1e6 points)
@@ -3354,6 +3387,580 @@ def phase_lm_families(device: str = "cuda", preset: str = "full", plan=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the LM sharded over a device mesh (gloo ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+# the ranks: (2, 2) and (1, 4) over ranks 0-3, (4, 2) over all eight
+MESH_WORLD = 8
+MESH_TIMEOUT_S = 600
+# smollm-360m at full width and depth: the train step's batch and sequence;
+# the served batch, prompt and greedy tokens
+MESH_LM_TRAIN = (8, 512)
+MESH_LM_SERVE = (2, 512, 8)
+# the float32 hold's depth: smollm-360m's widths at 8 of 32 layers (a cut
+# for time: every layer runs the same sharded code)
+MESH_F32_LAYERS = 8
+# one moonshot-v1-16b-a3b MoE layer at full width in float32 at capacity
+# factor 8 (no pair dropped), as the reference's EP test runs its layer:
+# (batch, sequence) taking the all-to-all path and the all-reduce path
+MESH_MOE = {"a2a": (4, 256), "allreduce": (4, 1)}
+# the elastic round trip's depth: smollm-360m's widths at 4 of 32 layers
+MESH_ELASTIC_LAYERS = 4
+# the reference's EP bounds (tests/test_moe.py): the loss within 1e-2
+# relative, each leaf's max error within 1e-3 of its max; logits held as
+# the loss. They hold the float32 model, and bf16's loss.
+MESH_TOL = {"loss": 1e-2, "leaf": 1e-3, "logits": 1e-2}
+# bf16 at full depth: its gradients (Adam's first moment after the step),
+# its parameters after the step and its prefill logits differ from the
+# single process's by bf16's own rounding, summed in another order, which
+# is larger than the EP bounds. Each is held at the geometric mean of two
+# readings on the single process, per leaf: the noise (bf16 against the
+# same model in float32) and a control (a wrong result of the kind a
+# sharding fault gives). A leaf's noise reading is taken no lower than the
+# median over the leaves (a small leaf can read 0: bf16 parameters after
+# Adam's first step differ only where a gradient entry changes sign). The
+# control must exceed the noise MESH_SEPARATION times, so that the limit
+# lies at least sqrt(MESH_SEPARATION) from each.
+MESH_SEPARATION = 4.0
+
+
+def _mesh_lm_cfg(preset: str):
+    """smollm-360m, or its smoke config in bf16 as the full one is."""
+    if preset == "full":
+        return get_config(LM_ARCH)
+    return dataclasses.replace(get_smoke_config(LM_ARCH), param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+
+
+def _over(gap: float, limit: float) -> float:
+    """gap / limit (inf for a gap over a limit of 0)."""
+    return gap / limit if limit > 0 else (math.inf if gap > 0 else 0.0)
+
+
+def _leaf_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| (0 where want is all zero and got too)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    return diff / scale if scale > 0 else diff
+
+
+def _l2(t: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(t.detach().double().flatten()))
+
+
+def _gap(got: torch.Tensor, want: torch.Tensor, scale: float) -> float:
+    """||got - want|| / scale, in float64."""
+    return _l2(got.detach().double() - want.detach().to(got.device).double()) / scale
+
+
+def _f32(cfg, layers):
+    return dataclasses.replace(_cut(cfg, layers), param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def _mesh_batches(cfg, dev, sizes_train, sizes_serve):
+    """The train batch (TokenStream batch 0) and the prompt batch, from the
+    seed: the same on every rank and in the parent."""
+    B, S = sizes_train
+    train = TokenStream(cfg, ShapeCell("mesh", S, B, "train"), batch=B, seed=SEED,
+                        device=dev).batch(0)
+    Bs, Ss, _ = sizes_serve
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    prompt = model_zoo.make_batch(gen, cfg, ShapeCell("mesh", Ss, Bs, "prefill"), batch=Bs)
+    return train, prompt
+
+
+def _teacher_forced(cfg, prefill, decode, params, prompt, tokens):
+    """Prefill logits and each decode step's logits, the step i input being
+    tokens[:, i - 1] (the greedy token of the prefill for i = 0)."""
+    S = prompt["tokens"].shape[1]
+    logits, states = prefill(params, prompt)
+    out = [sharding.full(logits).float().cpu()]
+    tok = (torch.argmax(sharding.full(logits), -1)[:, None] % cfg.vocab_size).to(torch.int32)
+    for i in range(tokens.shape[1]):
+        if i:
+            tok = tokens[:, i - 1:i].to(tok.device)
+        logits, states = decode(params, states, tok, S + i)
+        out.append(sharding.full(logits).float().cpu())
+    return out
+
+
+def _single_step(cfg, dev, params, train):
+    """One `make_train_step(...).jitted()` step on one process: (loss, new
+    parameters, Adam's first moment: the clipped gradients times 1 - b1)."""
+    B, S = train["tokens"].shape
+    one = lm_steps.make_train_step(cfg, ShapeCell("mesh", S, B, "train"), LocalMesh(dev.type),
+                                   batch=B)
+    new, opt, metrics = one.jitted()(params, adam_init(params, lm_steps.default_adam(cfg)), train)
+    return float(metrics["loss"]), new, opt.m
+
+
+def mesh_lm_reference(cfg, dev, sizes_train, sizes_serve, f32_layers, path: Path) -> None:
+    """The single process on the card, saved to `path` (the float32
+    tokens also apart, for every rank).
+
+    bf16 at full depth: one train step's loss, first moment and new
+    parameters, and `launch.serve.generate`'s prefill logits and tokens.
+    Beside them, per leaf, the readings its limits come from (MESH_
+    SEPARATION): the noise, the same model in float32 (the widened
+    parameters; its new parameters rounded to bf16); the controls: for the
+    gradients the step on the first half of the batch alone (what data
+    rank 0 would hold without the reduction over "data"), for the
+    parameters the update lost (the old parameters: a gap of 1), for the
+    logits the prompt one token short (a sequence shard off by one
+    position). Gaps are L2 norms: the moments' relative to the moment's,
+    the parameters' relative to the step's update, the logits' relative to
+    theirs.
+
+    float32 at `f32_layers`: the step's loss, first moment and new
+    parameters, generate's greedy tokens and each teacher-forced step's
+    logits."""
+    model = model_zoo.build(cfg)
+    train, prompt = _mesh_batches(cfg, dev, sizes_train, sizes_serve)
+    params = model.init(SEED, device=dev)
+    paths = flatten(params)[0]
+    loss, new, m = _single_step(cfg, dev, params, train)
+    new, m = flatten(new)[1], flatten(m)[1]
+    upd = [_l2(n.float() - p.float()) for n, p in zip(new, flatten(params)[1])]
+    m_l2 = [_l2(t) for t in m]
+    half = {k: v[:v.shape[0] // 2] for k, v in train.items()}
+    ctl_m = [_gap(a, b, s) for a, b, s in
+             zip(flatten(_single_step(cfg, dev, params, half)[2])[1], m, m_l2)]
+    served = lm_serve.generate(cfg, params, prompt, sizes_serve[2])
+    logits = served.prefill_logits.float()
+    short = {k: v[:, :-1] for k, v in prompt.items()}
+    ctl_l = _gap(lm_serve.generate(cfg, params, short, 1).prefill_logits.float(), logits,
+                 _l2(logits))
+    wide = tree_map(lambda t: t.float(), params)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    del params
+    loss32, new32, m32 = _single_step(cfg32, dev, wide, train)
+    noise_m = [_gap(a, b, _l2(b)) for a, b in zip(m, flatten(m32)[1])]
+    noise_p = [_gap(a, b.to(a.dtype), s) for a, b, s in zip(new, flatten(new32)[1], upd)]
+    del new32, m32
+    logits32 = lm_serve.generate(cfg32, wide, prompt, 1).prefill_logits.float()
+    del wide
+    bf16 = {"loss": loss, "noise_loss": abs(loss32 - loss) / abs(loss32),
+            "m": [t.cpu() for t in m], "params": [t.cpu() for t in new], "m_l2": m_l2,
+            "upd": upd, "prefill_logits": logits.cpu(), "tokens": served.tokens.cpu(),
+            "noise": {"grads": noise_m, "params": noise_p,
+                      "logits": [_gap(logits, logits32, _l2(logits32))]},
+            "control": {"grads": ctl_m, "params": [1.0] * len(upd), "logits": [ctl_l]}}
+    del new, m, logits, logits32
+    cfg = _f32(cfg, f32_layers)
+    model = model_zoo.build(cfg)
+    params = model.init(SEED, device=dev)
+    loss, new, m = _single_step(cfg, dev, params, train)
+    served = lm_serve.generate(cfg, params, prompt, sizes_serve[2])
+    total = sizes_serve[1] + sizes_serve[2] + 1
+    steps_logits = _teacher_forced(
+        cfg, lambda p, b: model.prefill(p, b, total_slots=total),
+        lambda p, st, t, pos: model.decode_step(p, t, pos, st), params, prompt, served.tokens)
+    torch.save(served.tokens.cpu(), path.with_name("lm_tokens.pt"))
+    torch.save({"bf16": bf16, "paths": paths, "loss": loss,
+                "m": [t.cpu() for t in flatten(m)[1]],
+                "params": [t.cpu() for t in flatten(new)[1]], "tokens": served.tokens.cpu(),
+                "step_logits": steps_logits}, path)
+
+
+def _mesh_lm_rank(cfg, dev, mesh, sizes_train, sizes_serve, f32_layers, ref_path: Path) -> dict:
+    """smollm on the (2, 2) mesh. bf16 at full depth: one train step
+    through `make_train_step(...).jitted()` and `generate` on the mesh,
+    timed. float32 at `f32_layers`: the same train step, and the
+    teacher-forced logits through the prefill and decode bundles. Each
+    step's first moment and new parameters gathered and held on rank 0."""
+    rank = dist.get_rank()
+    B, S = sizes_train
+    Bs, Ss, n_new = sizes_serve
+    out = {}
+    for kind in ("bf16", "f32"):
+        c = cfg if kind == "bf16" else _f32(cfg, f32_layers)
+        model = model_zoo.build(c)
+        train, prompt = _mesh_batches(c, dev, sizes_train, sizes_serve)
+        bundle = lm_steps.make_train_step(c, ShapeCell("mesh", S, B, "train"), mesh, batch=B)
+        params = sharding.place(model.init(SEED, device=dev), bundle.in_shardings[0])
+        opt = sharding.place(adam_init(params, lm_steps.default_adam(c)),
+                             bundle.in_shardings[1])
+        data = sharding.place(train, bundle.in_shardings[2])
+        rec = {}
+        if kind == "bf16":
+            leaves = flatten(params)[1]
+            rec["local_bytes"] = sum(sharding.local(t).numel() * t.element_size() for t in leaves)
+            rec["total_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        new, opt, metrics = bundle.jitted()(params, opt, data)
+        rec["loss"] = float(metrics["loss"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rec["t_step"] = time.perf_counter() - t0
+        rec["peak_gib"] = _peak_gib(dev)
+        # every rank joins each gather; rank 0 keeps the leaves
+        got = {}
+        for what, tree in (("m", opt.m), ("params", new)):
+            got[what] = []
+            for t in flatten(tree)[1]:
+                t = sharding.full(t)
+                if rank == 0:
+                    got[what].append(t.cpu())
+                del t
+        del new, opt, data
+        if kind == "bf16":
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            served = lm_serve.generate(c, params, prompt, n_new, mesh=mesh)
+            rec["t_serve"] = time.perf_counter() - t0
+            rec["serve_peak_gib"] = _peak_gib(dev)
+            rec["tokens"] = served.tokens.cpu()
+            rec["prefill_logits"] = served.prefill_logits.float().cpu()
+        else:
+            total = Ss + n_new + 1
+            cell = ShapeCell("mesh", Ss + (c.frontend_tokens or 0), Bs, "prefill")
+            prefill = lm_steps.make_prefill_step(c, cell, mesh, batch=Bs,
+                                                 total_slots=total).jitted()
+            decode = lm_steps.make_decode_step(c, ShapeCell("mesh", total, Bs, "decode"), mesh,
+                                               batch=Bs).jitted()
+            tokens = torch.load(ref_path.with_name("lm_tokens.pt"))  # the single process's
+            t0 = time.perf_counter()
+            step_logits = _teacher_forced(c, prefill, decode, params, prompt, tokens)
+            rec["t_serve"] = time.perf_counter() - t0
+        del params
+        if rank == 0:
+            ref = torch.load(ref_path)
+            paths = ref["paths"]
+            if kind == "bf16":
+                r = ref["bf16"]
+                rec.update(ref_loss=r["loss"], ref_tokens=r["tokens"], noise_loss=r["noise_loss"],
+                           noise=r["noise"], control=r["control"], paths=paths, gap={
+                               "grads": [_gap(g, w, s) for g, w, s in
+                                         zip(got["m"], r["m"], r["m_l2"])],
+                               "params": [_gap(g, w, s) for g, w, s in
+                                          zip(got["params"], r["params"], r["upd"])],
+                               "logits": [_gap(rec["prefill_logits"], r["prefill_logits"],
+                                               _l2(r["prefill_logits"]))]})
+            else:
+                rec.update(
+                    ref_loss=ref["loss"],
+                    grad_err={p: _leaf_err(g, w) for p, g, w in zip(paths, got["m"], ref["m"])},
+                    param_err={p: _leaf_err(g, w) for p, g, w in
+                               zip(paths, got["params"], ref["params"])},
+                    step_logits_err=[_leaf_err(g, w) for g, w in
+                                     zip(step_logits, ref["step_logits"])])
+            del ref
+        del got
+        out[kind] = rec
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _moe_cfg(preset: str):
+    base = get_config("moonshot-v1-16b-a3b") if preset == "full" else \
+        get_smoke_config("moonshot-v1-16b-a3b")
+    return dataclasses.replace(base, param_dtype="float32", compute_dtype="float32",
+                               capacity_factor=8.0)
+
+
+def _moe_inputs(cfg, dev, sizes):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    params = moe.moe_init(gen, cfg, dev)
+    xs = {k: torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+          for k, (B, S) in sizes.items()}
+    return params, xs
+
+
+def mesh_moe_reference(cfg, dev, sizes, path: Path) -> None:
+    """`moe_apply_dense` on one process: each batch's output and the
+    gradients of sum(y^2) for the input and every parameter."""
+    params, xs = _moe_inputs(cfg, dev, sizes)
+    out = {}
+    for k, x in xs.items():
+        leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
+        xg = x.detach().requires_grad_(True)
+        y = moe.moe_apply_dense(leaves, xg, cfg).y
+        loss = torch.sum(y.float() ** 2)
+        g = torch.autograd.grad(loss, [xg, *leaves.values()])
+        out[k] = {"loss": float(loss), "y": y.detach().cpu(),
+                  "grads": dict(zip(["x", *leaves], (t.cpu() for t in g)))}
+    torch.save(out, path)
+
+
+def _mesh_moe_rank(cfg, dev, mesh, sizes, ref_path: Path) -> dict:
+    """The MoE layer on the (1, 4) mesh through `moe_apply` (experts over
+    the model axis): each batch's route, output and gradients against
+    the dense single process."""
+    rank = dist.get_rank()
+    params, xs = _moe_inputs(cfg, dev, sizes)
+    spec = sharding.to_shardings(sharding.param_specs({"moe": params}, mesh), mesh)["moe"]
+    placed = sharding.place(params, spec)
+    constrain = sharding.make_constrain(mesh)
+    ref = torch.load(ref_path) if rank == 0 else None
+    routes = {"ep": 0, "a2a": 0}
+    orig = (moe.moe_apply_ep, moe.moe_apply_ep_a2a)
+
+    def spy(name, fn):
+        def run(*a, **k):
+            routes[name] += 1
+            return fn(*a, **k)
+        return run
+
+    moe.moe_apply_ep, moe.moe_apply_ep_a2a = spy("ep", orig[0]), spy("a2a", orig[1])
+    out = {}
+    try:
+        for k, x in xs.items():
+            before = dict(routes)
+            leaves = {n: p.detach().requires_grad_(True) for n, p in placed.items()}
+            xg = sharding.replicate(x, mesh).detach().requires_grad_(True)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with sharding.mesh_context(mesh):
+                y = moe.moe_apply(leaves, xg, cfg, constrain).y
+                loss = torch.sum(y.float() ** 2)
+                g = torch.autograd.grad(loss, [xg, *leaves.values()])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            rec = {"ms": (time.perf_counter() - t0) * 1e3,
+                   "route": [n for n in routes if routes[n] > before[n]],
+                   "loss": float(sharding.full(loss))}
+            y_full = sharding.full(y).cpu()
+            g_full = dict(zip(["x", *leaves], (sharding.full(t).cpu() for t in g)))
+            if rank == 0:
+                want = ref[k]
+                rec["loss_err"] = abs(rec["loss"] - want["loss"]) / abs(want["loss"])
+                rec["y_err"] = _leaf_err(y_full, want["y"])
+                rec["grad_err"] = {n: _leaf_err(g_full[n], want["grads"][n]) for n in g_full}
+            out[k] = rec
+    finally:
+        moe.moe_apply_ep, moe.moe_apply_ep_a2a = orig
+    return out
+
+
+def _mesh_elastic_rank(cfg, dev, mesh22, mesh42, ckpt: Path) -> dict:
+    """Save the parameters from the (2, 2) mesh (ranks 0-3), restore them
+    with `reshard_for_mesh` on (4, 2) (all eight ranks), save that as step
+    2 and restore it on (2, 2): every restored leaf bitwise equal to the
+    parameters saved."""
+    rank = dist.get_rank()
+    model = model_zoo.build(cfg)
+    params = model.init(SEED, device=dev)
+    abstract = model.init(device="meta")
+    mgr = CheckpointManager(ckpt)
+    t0 = time.perf_counter()
+    if rank < 4:
+        placed = sharding.place(params, sharding.to_shardings(
+            sharding.param_specs(params, mesh22), mesh22))
+        mgr.save(1, {"params": placed}, extra={"step": 1})
+    dist.barrier()
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on42, extra = reshard_for_mesh(str(ckpt), abstract, mesh42, step=1)
+    t_42 = time.perf_counter() - t0
+    same42 = all(torch.equal(sharding.full(a), b) for a, b in
+                 zip(flatten(on42)[1], flatten(params)[1]))
+    mgr.save(2, {"params": on42}, extra={"step": 2})
+    dist.barrier()
+    out = {"extra": extra, "same42": same42, "t_save": t_save, "t_42": t_42,
+           "placements42": [str(t.placements) for t in flatten(on42)[1][:3]]}
+    if rank < 4:
+        t0 = time.perf_counter()
+        on22, extra2 = reshard_for_mesh(str(ckpt), abstract, mesh22, step=2)
+        out["t_22"] = time.perf_counter() - t0
+        out["same22"] = all(torch.equal(sharding.full(a), b) for a, b in
+                            zip(flatten(on22)[1], flatten(params)[1]))
+        out["extra2"] = extra2
+    return out
+
+
+def _mesh_rank(rank: int, world: int, store: str, tmp: str, device: str, preset: str,
+               layers) -> None:
+    """One rank of the [mesh] phase: the three parts in turn, results saved."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    tmp = Path(tmp)
+    try:
+        mesh22 = lm_mesh.make_mesh((2, 2), ("data", "model"), dev.type)
+        mesh14 = lm_mesh.make_mesh((1, 4), ("data", "model"), dev.type)
+        mesh42 = lm_mesh.make_mesh((4, 2), ("data", "model"), dev.type)
+        res = {}
+        lm_cfg = _mesh_lm_cfg(preset)
+        if rank < 4:
+            res["lm"] = _mesh_lm_rank(lm_cfg, dev, mesh22, *layers["lm_sizes"],
+                                      layers["f32"], tmp / "lm_ref.pt")
+            res["moe"] = _mesh_moe_rank(_moe_cfg(preset), dev, mesh14, layers["moe_sizes"],
+                                        tmp / "moe_ref.pt")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res["elastic"] = _mesh_elastic_rank(_cut(lm_cfg, layers["elastic"]), dev, mesh22,
+                                            mesh42, tmp / "elastic")
+        res["host"] = dict(collectives.host_bytes)
+        torch.save(res, tmp / f"mesh_r{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(device: str = "cuda", preset: str = "full", lm_sizes=(MESH_LM_TRAIN,
+               MESH_LM_SERVE), moe_sizes=None, elastic_layers=MESH_ELASTIC_LAYERS,
+               f32_layers=MESH_F32_LAYERS) -> dict:
+    """The LM sharded over a device mesh on the one card (`preset="smoke"`
+    and small sizes only to rehearse on the CPU): the single-process
+    references here, then eight spawned gloo ranks sharing the card (NCCL
+    refuses two ranks on one card): smollm-360m at full width and depth on
+    (data 2, model 2), a moonshot MoE layer through both expert-parallel
+    paths on (1, 4), and the elastic round trip (2, 2) -> (4, 2) -> (2, 2).
+    Held to the single process at MESH_TOL; the LM launches none of B1-B7."""
+    dev = torch.device(device)
+    card = card_line() if dev.type == "cuda" else "cpu"
+    lm_cfg = _mesh_lm_cfg(preset)
+    moe_sizes = MESH_MOE if moe_sizes is None else moe_sizes
+    before = counts()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        t0 = time.perf_counter()
+        mesh_lm_reference(lm_cfg, dev, *lm_sizes, f32_layers, tmp / "lm_ref.pt")
+        mesh_moe_reference(_moe_cfg(preset), dev, moe_sizes, tmp / "moe_ref.pt")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+        ctx = multiprocessing.get_context("spawn")
+        plan = {"lm_sizes": lm_sizes, "moe_sizes": moe_sizes, "elastic": elastic_layers,
+                "f32": f32_layers}
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_mesh_rank, args=(r, MESH_WORLD, str(tmp / "store"),
+                                                      str(tmp), device, preset, plan))
+                 for r in range(MESH_WORLD)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            for proc in procs:
+                proc.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            hung = [proc for proc in procs if proc.is_alive()]
+            for proc in hung:
+                proc.kill()
+                proc.join(30)
+        t_ranks = time.perf_counter() - t0
+        check(not hung, f"[mesh] {len(hung)} ranks still running after {MESH_TIMEOUT_S} s")
+        check(all(proc.exitcode == 0 for proc in procs),
+              f"[mesh] rank exit codes {[proc.exitcode for proc in procs]}")
+        ranks = [torch.load(tmp / f"mesh_r{r}.pt") for r in range(MESH_WORLD)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[mesh] single-process references {t_ref:.1f} s; {MESH_WORLD} gloo ranks on one "
+        f"card {t_ranks:.1f} s (spawn, build, three parts) | {card}")
+    failed = []
+    tol = MESH_TOL
+    # --- part 1: smollm on (2, 2) ---
+    lm = [r["lm"] for r in ranks[:4]]
+    b16, f32 = lm[0]["bf16"], lm[0]["f32"]
+    f32_layers = f32_layers or lm_cfg.num_layers
+    log(f"[mesh] lm {lm_cfg.name} bf16 on (data 2, model 2): local parameter bytes "
+        + ", ".join(f"rank {i} {x['bf16']['local_bytes']:,}" for i, x in enumerate(lm))
+        + f" of {b16['total_bytes']:,} "
+        f"({max(x['bf16']['local_bytes'] for x in lm) / b16['total_bytes']:.1%} at most)")
+    loss_err = abs(b16["loss"] - b16["ref_loss"]) / abs(b16["ref_loss"])
+    log(f"[mesh] lm bf16 train {lm_sizes[0]}, {lm_cfg.num_layers} layers: loss "
+        f"{b16['loss']:.6f} vs single process {b16['ref_loss']:.6f}, rel err "
+        f"{loss_err:.3e} (tol {tol['loss']:g}; the single process's bf16 vs float32 "
+        f"{b16['noise_loss']:.3e}); greedy tokens equal the single process's: "
+        f"{bool(torch.equal(b16['tokens'], b16['ref_tokens']))}")
+    if not loss_err <= tol["loss"]:
+        failed.append(f"lm bf16 loss {loss_err:.3e}")
+    for what in ("grads", "params", "logits"):
+        names = b16["paths"] if what != "logits" else ["prefill"]
+        floor = statistics.median(b16["noise"][what])
+        rows = [(n, g, max(nz, floor), ct, math.sqrt(max(nz, floor) * ct)) for n, g, nz, ct in
+                zip(names, b16["gap"][what], b16["noise"][what], b16["control"][what])]
+        worst = max(rows, key=lambda r: _over(r[1], r[4]))
+        log(f"[mesh] lm bf16 {what} (L2 gap to the single process, per leaf): worst "
+            f"{worst[0]} {worst[1]:.3e} of limit {worst[4]:.3e} (noise {worst[2]:.3e}, control "
+            f"{worst[3]:.3e}); gaps {min(r[1] for r in rows):.2e}-{max(r[1] for r in rows):.2e},"
+            f" noise {min(r[2] for r in rows):.2e}-{max(r[2] for r in rows):.2e}, control "
+            f"{min(r[3] for r in rows):.2e}-{max(r[3] for r in rows):.2e}")
+        bad = [r for r in rows if not r[1] <= r[4]]
+        if bad:
+            failed.append(f"lm bf16 {what} {len(bad)} over their limits: " + ", ".join(
+                f"{r[0]} {r[1]:.3e} > {r[4]:.3e}" for r in bad[:5]))
+        blind = [r for r in rows if not r[3] >= MESH_SEPARATION * r[2]]
+        if blind:
+            failed.append(f"lm bf16 {what}: the control is not {MESH_SEPARATION:g}x the noise "
+                          f"at " + ", ".join(f"{r[0]} {r[3]:.3e} vs {r[2]:.3e}" for r in blind[:5]))
+    loss_err = abs(f32["loss"] - f32["ref_loss"]) / abs(f32["ref_loss"])
+    log(f"[mesh] lm float32 ({f32_layers} of {lm_cfg.num_layers} layers, a cut) train "
+        f"{lm_sizes[0]} through the step's entry point: loss {f32['loss']:.6f} vs single "
+        f"process {f32['ref_loss']:.6f}, rel err {loss_err:.3e} (tol {tol['loss']:g})")
+    if not loss_err <= tol["loss"]:
+        failed.append(f"lm float32 loss {loss_err:.3e}")
+    for what, name in (("grad_err", "gradient (Adam's first moment)"),
+                       ("param_err", "parameters after the step")):
+        errs = f32[what]
+        worst = max(errs, key=errs.get)
+        log(f"[mesh] lm float32 {name} leaves: worst {worst} {errs[worst]:.3e} of its "
+            f"max, median {statistics.median(errs.values()):.3e} (tol {tol['leaf']:g})")
+        bad = [p for p, e in errs.items() if not e <= tol["leaf"]]
+        if bad:
+            failed.append(f"lm float32 {what} {len(bad)} leaves over {tol['leaf']:g}: "
+                          + ", ".join(f"{p} {errs[p]:.3e}" for p in bad[:5]))
+    errs = f32["step_logits_err"]
+    log(f"[mesh] lm float32 serve {lm_sizes[1]}: prefill and teacher-forced step logits "
+        f"(the single process's greedy tokens fed) err " + " ".join(f"{e:.2e}" for e in errs)
+        + f" (tol {tol['logits']:g})")
+    if not all(e <= tol["logits"] for e in errs):
+        failed.append(f"lm float32 logits {errs}")
+    if any(not torch.equal(x["bf16"]["tokens"], b16["tokens"]) for x in lm):
+        failed.append("lm bf16 ranks' greedy tokens differ")
+    log(f"[mesh] lm times (gloo over the host, 4 ranks on one card: no speed figure): bf16 "
+        f"train step (the first, DTensor's sharding propagation included) "
+        + ", ".join(f"{x['bf16']['t_step']:.1f}" for x in lm) + " s, generate "
+        + ", ".join(f"{x['bf16']['t_serve']:.1f}" for x in lm) + " s, peak (train) "
+        + ", ".join(f"{x['bf16']['peak_gib']:.2f}" for x in lm) + " GiB, peak (generate) "
+        + ", ".join(f"{x['bf16']['serve_peak_gib']:.2f}" for x in lm) + " GiB (each rank's "
+        "own allocations); float32 train step "
+        + ", ".join(f"{x['f32']['t_step']:.1f}" for x in lm) + " s, teacher-forced serve "
+        + ", ".join(f"{x['f32']['t_serve']:.1f}" for x in lm) + f" s (ranks 0-3) | {card}")
+    # --- part 2: the MoE layer on (1, 4) ---
+    for k, want_route in (("a2a", "a2a"), ("allreduce", "ep")):
+        rec = ranks[0]["moe"][k]
+        worst = max(rec["grad_err"], key=rec["grad_err"].get)
+        log(f"[mesh] moe {k} {moe_sizes[k]}: route {rec['route']}, loss rel err "
+            f"{rec['loss_err']:.3e} (tol {tol['loss']:g}), output err {rec['y_err']:.3e}, "
+            f"gradients " + " ".join(f"{n} {e:.2e}" for n, e in rec["grad_err"].items())
+            + f" (tol {tol['leaf']:g}); {rec['ms']:.1f} ms (gloo-bound) | {card}")
+        if rec["route"] != [want_route]:
+            failed.append(f"moe {k} took {rec['route']}, not {want_route}")
+        if not (rec["loss_err"] <= tol["loss"] and rec["grad_err"][worst] <= tol["leaf"]):
+            failed.append(f"moe {k} loss {rec['loss_err']:.3e} {worst} "
+                          f"{rec['grad_err'][worst]:.3e}")
+    # --- part 3: elastic ---
+    el = [r["elastic"] for r in ranks]
+    ok42 = all(x["same42"] for x in el)
+    ok22 = all(x["same22"] for x in el[:4])
+    log(f"[mesh] elastic ({elastic_layers} of {lm_cfg.num_layers} layers, a cut): saved on "
+        f"(2, 2) in {el[0]['t_save']:.1f} s; restored on (4, 2) in {el[0]['t_42']:.1f} s, "
+        f"bitwise {ok42}; saved there and restored on (2, 2) in {el[0]['t_22']:.1f} s, "
+        f"bitwise {ok22}; placements on (4, 2) {el[0]['placements42']}")
+    if not (ok42 and ok22 and el[0]["extra"] == {"step": 1} and el[0]["extra2"] == {"step": 2}):
+        failed.append(f"elastic (4, 2) {ok42} (2, 2) {ok22}")
+    host = ranks[0]["host"]
+    log(f"[mesh] gloo on CUDA tensors: all-gathers through the host (parallel.collectives."
+        f"host_all_gather) on rank 0: {host['calls']} calls, {host['all_gather']:,} bytes; "
+        f"all-reduce, reduce-scatter and all-to-all carried by gloo itself")
+    check(counts() == before, f"[mesh] the LM launched a kernel: {counts()} vs {before}")
+    check(not failed, "[mesh] " + "; ".join(failed))
+    return {"lm": lm, "moe": ranks[0]["moe"], "elastic": el[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -3400,6 +4007,7 @@ def main() -> int:
         times = phase("times", phase_times, trained, pallas, sgpr, data)
         phase("lm", phase_lm)
         phase("lm families", phase_lm_families)
+        phase("mesh", phase_mesh)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

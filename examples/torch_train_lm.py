@@ -7,10 +7,11 @@ synthetic data pipeline.
     PYTHONPATH=src python examples/torch_train_lm.py --device cpu --steps 6 --batch 2 --seq 32 --layers 2
 
 The model is a 12-layer / d=768 smollm-family config (~110M parameters).
-It runs on the host mesh's first device; `--mesh pod` raises, because the
-production mesh waits for `parallel/sharding` (the port shards nothing
-yet). Like the JAX example, it reports the final loss beside the
-random-chance level ln V, and asserts that it is finite.
+It runs on the host mesh: this process alone, or every rank of a process
+group the caller started (parameters, Adam's state and batches placed by
+the rules table); `--mesh pod` needs a process group of 256 ranks and
+raises without one. Like the JAX example, it reports the final loss beside
+the random-chance level ln V, and asserts that it is finite.
 """
 import argparse
 import dataclasses
@@ -21,6 +22,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+from repro_torch import device as _device
 from repro_torch.configs import ModelConfig, ShapeCell
 from repro_torch.data import TokenStream
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
@@ -28,6 +30,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model_zoo import build
 from repro_torch.optim import AdamConfig, adam_init, wsd_schedule
 from repro_torch.optim.adam import flatten
+from repro_torch.parallel import sharding as shd
 from repro_torch.runtime import LoopConfig, TrainLoop
 
 CFG_100M = ModelConfig(
@@ -62,17 +65,19 @@ def main(argv=None) -> dict:
                                       stable_steps=args.steps // 2,
                                       decay_steps=max(1, args.steps // 3)),
                       weight_decay=0.1, clip_norm=1.0)
+    dev = _device.resolve(args.device)
     bundle = make_train_step(cfg, shape, mesh, adam=adam, batch=args.batch)
-    params = build(cfg).init(0, device=mesh.device)
+    params = shd.place(build(cfg).init(0, device=dev), bundle.in_shardings[0])
     n = sum(t.numel() for t in flatten(params)[1])
-    print(f"model: {n / 1e6:.1f}M params; mesh {dict(zip(mesh.axis_names, mesh.shape))} "
-          f"on {mesh.device}")
-    opt = adam_init(params, adam)
+    print(f"model: {n / 1e6:.1f}M params; mesh {shd.axis_sizes(mesh)} on {dev}")
+    opt = shd.place(adam_init(params, adam), bundle.in_shardings[1])
 
-    loop = TrainLoop(bundle.fn, params, opt,
-                     TokenStream(cfg, shape, batch=args.batch, device=mesh.device),
+    loop = TrainLoop(bundle.jitted(), params, opt,
+                     TokenStream(cfg, shape, batch=args.batch, device=dev,
+                                 shardings=bundle.in_shardings[2]),
                      LoopConfig(ckpt_dir=ckpt_dir, ckpt_every=100,
-                                log_every=max(1, min(20, args.steps // 3))))
+                                log_every=max(1, min(20, args.steps // 3))),
+                     shardings=bundle.in_shardings[:2])
     final = loop.run(args.steps)
     print(f"done: final loss {final['loss']:.4f} (random-chance ~ "
           f"{math.log(cfg.vocab_size):.2f})")

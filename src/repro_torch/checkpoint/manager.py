@@ -32,9 +32,16 @@ Guarantees:
 
 bfloat16 leaves are stored widened to float32 (npz has no bfloat16; f32 ⊃
 bf16, so the round trip is exact) and the manifest keeps "bfloat16";
-reads cast them back. The reference's `shardings=` (elastic restore onto a
-device mesh) waits for the port's `launch/mesh.py` and `runtime/`: here
-`restore` puts every leaf on one `device=`.
+reads cast them back.
+
+On a device mesh. Checkpoints hold full tensors, whatever the mesh: `save`
+gathers each DTensor leaf (`full_tensor()`, a collective every rank of
+its mesh joins) and rank 0 writes; a blocking save ends with a barrier
+over the mesh, so no rank reads before the write is down. `restore(...,
+shardings=)` places each leaf by the current mesh's placements
+(`parallel.sharding.Sharding`), every rank reading the whole leaf and
+keeping its own slices: resuming on another mesh is re-placement, not a
+resharding of shard files (`runtime.elastic`).
 """
 from __future__ import annotations
 
@@ -48,8 +55,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as _device
+from repro_torch.parallel import sharding as shd
 
 Tree = Any
 
@@ -148,9 +157,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _host(leaf) -> Tuple[np.ndarray, str]:
-    """(host copy as stored, manifest dtype name) of one leaf."""
+    """(host copy as stored, manifest dtype name) of one leaf (a DTensor
+    gathered whole first)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = shd.full(leaf.detach())
         name = str(t.dtype).removeprefix("torch.")
         if t.dtype in _WIDENED.values():
             t = t.to(torch.float32)
@@ -198,7 +208,11 @@ class CheckpointManager:
              blocking: bool = True) -> None:
         """Write `tree` as step `step`. The host copy is taken here,
         synchronously, even with blocking=False."""
+        mesh = next((x.device_mesh for _, x in flatten_with_keys(tree) if shd.is_dtensor(x)),
+                    None)
         flat, names = _flatten(tree)
+        # on a mesh, its first rank writes the gathered tensors
+        writer = mesh is None or dist.get_rank() == int(mesh.mesh.flatten()[0])
         manifest = {
             "step": step,
             "time": time.time(),
@@ -223,8 +237,11 @@ class CheckpointManager:
 
         self.wait()
         if blocking:
-            write()
-        else:
+            if writer:
+                write()
+            if mesh is not None:
+                shd.mesh_barrier(mesh)
+        elif writer:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
@@ -323,14 +340,18 @@ class CheckpointManager:
                 for k, a in arrays.items()}, manifest
 
     def restore(self, target: Tree, step: Optional[int] = None, *,
-                device: str | torch.device = _device.DEFAULT_DEVICE
-                ) -> tuple[Tree, Dict]:
+                device: str | torch.device = _device.DEFAULT_DEVICE,
+                shardings: Optional[Tree] = None) -> tuple[Tree, Dict]:
         """Restore into the structure of `target`, each leaf on `device` in
-        its target leaf's dtype; returns (tree, extra)."""
+        its target leaf's dtype; returns (tree, extra). `shardings` (the
+        target's structure, `sharding.Sharding` leaves or None) places each
+        leaf on its mesh: pass the current mesh's shardings to resume on
+        another topology."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         tensors, manifest = self.load_tensors(step, device=device)
+        placed = dict(flatten_with_keys(shardings)) if shardings is not None else {}
         leaves = []
         for key, leaf in flatten_with_keys(target):
             if key not in tensors:
@@ -341,5 +362,5 @@ class CheckpointManager:
                 raise ValueError(f"{key}: checkpoint {tuple(t.shape)} != target {shape}")
             dtype = leaf.dtype if isinstance(leaf, torch.Tensor) else \
                 torch_dtype(np.asarray(leaf).dtype.name)
-            leaves.append(t.to(dtype))
+            leaves.append(shd.place(t.to(dtype), placed.get(key)))
         return unflatten(target, leaves), manifest["extra"]

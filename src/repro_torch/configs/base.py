@@ -84,8 +84,8 @@ class ModelConfig:
         heads to the (padded) query-head axis through an explicit head->kv
         gather map, so no group structure is required of the pad — smollm
         pads 15 -> 16 instead of the group-preserving 15 -> 80. Decode uses
-        the grouped-unpadded path (heads are not sharded at decode). The
-        port has no tensor parallelism yet: it takes tp = 1, no pad."""
+        the grouped-unpadded path (heads are not sharded at decode). tp is
+        the model axis's size (`constrain.tp`), 1 off a mesh."""
         return -(-self.num_heads // tp) * tp
 
     def layer_windows(self) -> Tuple[int, ...]:

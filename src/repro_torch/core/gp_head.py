@@ -18,9 +18,11 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import svgp
+from repro_torch.core.psi_stats import SuffStats
 from repro_torch.core.gp_kernels import RBF
 from repro_torch.gp.stats import ExactBatch, suff_stats
 from repro_torch.models.layers import normal
+from repro_torch.parallel import collectives
 
 Params = Dict[str, torch.Tensor]
 
@@ -53,17 +55,31 @@ def _as_targets(targets: torch.Tensor, params: Params) -> torch.Tensor:
 
 
 def head_loss(params: Params, features: torch.Tensor, targets: torch.Tensor,
-              *, axis_names: tuple = ()) -> torch.Tensor:
-    """Negative collapsed bound per datapoint. The reference's `axis_names`
-    (statistics summed over mesh axes under shard_map) waits for
-    `parallel/sharding`; the port's data-parallel GP path is
-    `core.distributed`."""
-    if axis_names:
-        raise NotImplementedError("head_loss over mesh axes waits for parallel/sharding")
+              *, axis_names: tuple = (), mesh=None) -> torch.Tensor:
+    """Negative collapsed bound per datapoint.
+
+    If `axis_names` is non-empty, the features and targets are this rank's
+    shard over those axes of `mesh`, and the statistics are summed over
+    their process groups (the reference psums them under shard_map). The
+    parameters are the same on every rank; each rank's statistics'
+    cotangents are summed back over the groups, so every rank's gradient
+    is the whole one."""
     feats = _in_float32(features, params)
     tgts = _as_targets(targets, params)
     kern = RBF(params["Z"].shape[1])
-    stats = suff_stats(kern, params["kern"], ExactBatch(feats, tgts, params["Z"]))
+    groups = []
+    if axis_names:
+        if mesh is None:
+            raise ValueError("head_loss over mesh axes needs the mesh")
+        groups = [mesh.get_group(a) for a in axis_names]
+    kp, Z = params["kern"], params["Z"]
+    for g in groups:
+        names = sorted(kp)
+        *vals, Z = collectives.sum_grads([kp[k] for k in names] + [Z], g)
+        kp = dict(zip(names, vals))
+    stats = suff_stats(kern, kp, ExactBatch(feats, tgts, Z))
+    for g in groups:
+        stats = SuffStats(*(collectives.all_reduce_sum(x, g) for x in stats))
     Kuu = kern.K(params["kern"], params["Z"])
     terms = svgp.collapsed_bound(Kuu, stats, torch.exp(params["log_beta"]), tgts.shape[1])
     return -terms.bound / stats.n

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.parallel import sharding as shd
 
 
 def gplvm_synthetic(seed: int, N: int, D: int = 3, Q: int = 1,
@@ -69,17 +70,21 @@ class TokenStream:
     both the same numpy tokens. `checkpoint_state` / `restore_state` keep
     the reference's {"seed", "step"} dict, so a reference checkpoint's
     data position restores here. With a real corpus, per-host reads would
-    live here behind the same interface.
+    live here behind the same interface. `shardings` ({name: Sharding},
+    e.g. `sharding.to_shardings(sharding.batch_specs(...), mesh)`) places
+    each batch on a device mesh: every rank draws the whole batch and keeps
+    its own rows.
     """
 
     def __init__(self, cfg, shape, *, seed: int = 0, batch: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", shardings=None):
         from repro_torch.models.model_zoo import batch_shapes
 
         self.spec = batch_shapes(cfg, shape, batch)
         self.vocab = cfg.vocab_size
         self.state = TokenStreamState(seed=seed, step=0)
         self.device = _device.resolve(device)
+        self.shardings = shardings
 
     def checkpoint_state(self) -> Dict[str, int]:
         return dataclasses.asdict(self.state)
@@ -100,6 +105,8 @@ class TokenStream:
             else:
                 out[name] = torch.randn(shp, generator=gen, dtype=torch.float32,
                                         device=self.device).to(dtype)
+            if self.shardings is not None and name in self.shardings:
+                out[name] = shd.place(out[name], self.shardings[name])
         return out
 
     def next(self) -> Dict[str, torch.Tensor]:

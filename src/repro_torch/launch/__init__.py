@@ -4,5 +4,5 @@ from its parts (`cost`, the counterpart of `hlo_cost`), peak-intermediate
 estimates (`memory`), the GP-LVM dry run at the paper's production scale
 (`gp_dryrun`), and the LM side: device meshes (`mesh`), the train /
 prefill / decode step functions (`steps`) and the `train` and `serve`
-launchers. The reference's LM dry run (`launch/dryrun`) waits for
-`parallel/sharding`."""
+launchers. The reference's LM dry run (`launch/dryrun`) is not ported
+yet."""

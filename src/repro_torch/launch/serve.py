@@ -12,6 +12,9 @@ serves: the audio family's prompt batch carries encoder frames (encoded
 once at prefill), the vlm family's a prefix of patch embeddings, and the
 recurrent mixers carry their states where attention keeps a KV cache.
 Runs on CUDA unless `--device cpu` (a host without a CUDA device raises).
+Started as one process per rank with a process group, `--mesh host` (or
+`pod`, `multipod`) serves across the ranks: the batch over "data", the
+KV caches' slots and the vocab over "model".
 """
 from __future__ import annotations
 
@@ -22,9 +25,12 @@ from typing import Any
 
 import torch
 
+from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, ShapeCell, get_config, get_smoke_config
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.launch.train import make_mesh
 from repro_torch.models.model_zoo import build, make_batch
+from repro_torch.parallel import sharding as shd
 
 
 @dataclasses.dataclass
@@ -52,27 +58,54 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return (torch.argmax(logits, -1)[:, None] % cfg.vocab_size).to(torch.int32)
+
+
 @torch.no_grad()
-def generate(cfg: ModelConfig, params, batch: dict, new_tokens: int) -> ServeResult:
-    """Prefill `batch` and decode `new_tokens` greedy tokens, timed."""
+def generate(cfg: ModelConfig, params, batch: dict, new_tokens: int, *,
+             mesh=None) -> ServeResult:
+    """Prefill `batch` and decode `new_tokens` greedy tokens, timed. On a
+    `mesh` of more than one rank the steps run through the prefill and
+    decode `StepBundle`s (parameters, batch and states placed by the rules
+    table; the caches' slots split over the model axis), and every rank
+    picks the next token from the gathered logits."""
     model = build(cfg)
     tokens = batch["tokens"]
     device = tokens.device
     B, S = tokens.shape
     total = S + new_tokens + 1
+    if shd.is_distributed(mesh):
+        cell = ShapeCell("serve", S + (cfg.frontend_tokens or 0), B, "prefill")
+        prefill = make_prefill_step(cfg, cell, mesh, batch=B, total_slots=total).jitted()
+        dec = make_decode_step(cfg, ShapeCell("serve", total, B, "decode"), mesh, batch=B)
+        decode = dec.jitted()
+        params = shd.place(params, dec.in_shardings[0])
+        step_logits = shd.full
+    else:
+        def prefill(p, b):
+            return model.prefill(p, b, total_slots=total)
+
+        def decode(p, st, t, pos):
+            return model.decode_step(p, t, pos, st)
+
+        def step_logits(t):
+            return t
     _sync(device)
     t0 = time.perf_counter()
-    logits, states = model.prefill(params, batch, total_slots=total)
+    logits, states = prefill(params, batch)
+    logits = step_logits(logits)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits
-    tok = (torch.argmax(logits, -1)[:, None] % cfg.vocab_size).to(torch.int32)
+    tok = _greedy(logits, cfg)
     pos0 = S + (cfg.frontend_tokens or 0)
     outs = []
     t0 = time.perf_counter()
     for i in range(new_tokens):
-        logits, states = model.decode_step(params, tok, pos0 + i, states)
-        tok = (torch.argmax(logits, -1)[:, None] % cfg.vocab_size).to(torch.int32)
+        logits, states = decode(params, states, tok, pos0 + i)
+        logits = step_logits(logits)
+        tok = _greedy(logits, cfg)
         outs.append(tok)
     _sync(device)
     t_decode = time.perf_counter() - t0
@@ -85,14 +118,18 @@ def serve(arch: str, preset: str = "smoke", *, batch: int = 4, prompt_len: int =
           params: Any = None) -> ServeResult:
     """The launcher's run: parameters from `seed` (or the caller's
     `params`, e.g. a trained model's), a prompt batch drawn from `seed` on
-    the mesh's device, then `generate`."""
+    `device`, then `generate` on the `mesh` ("host": every rank of the
+    process group, or this process alone; "pod" / "multipod": the
+    production meshes). Every rank draws the same parameters and prompts
+    and keeps its own slices."""
     cfg = get_smoke_config(arch) if preset == "smoke" else get_config(arch)
-    dev = make_mesh(mesh, device).device
+    dev = _device.resolve(device)
+    the_mesh = make_mesh(mesh, dev)
     params = params if params is not None else build(cfg).init(seed, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     data = make_batch(gen, cfg, ShapeCell("cli", prompt_len, batch, "prefill"), batch=batch)
-    return generate(cfg, params, data, new_tokens)
+    return generate(cfg, params, data, new_tokens, mesh=the_mesh)
 
 
 def main(argv=None) -> ServeResult:

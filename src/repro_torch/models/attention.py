@@ -16,6 +16,14 @@ windows, and ring-buffer KV caches (counterpart of
     decode step writes its slot in place: the reference's serve step
     donates the states it is given, so no caller keeps the old ones.
 
+On a device mesh (`parallel.sharding`) the tensors are DTensors and the
+`constrain` hooks sit where the reference's do: q and k in the
+head-sharded layout before RoPE, the blocked q/k/v and the softmax carries
+with heads over the model axis. Decode runs flash-decode style over the
+cache's slots, which the state rules shard over the model axis: each rank
+scores its own slots, and the softmax's max, then its sum and the output,
+are all-reduced over the model axis.
+
 This is the reference's algorithm, not a fused attention kernel: a faster
 attention (`scaled_dot_product_attention` or a kernel of its own) is a
 later performance change.
@@ -26,10 +34,13 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, dt
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import no_constrain
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 512
@@ -57,24 +68,29 @@ class KVCache(NamedTuple):
     pos: torch.Tensor  # (B, S_slots) int32 absolute position per slot; -1 = empty
 
 
-def _qkv(params, x, positions, cfg: ModelConfig, tp: int = 1):
+def _qkv(params, x, positions, cfg: ModelConfig, tp: int = 1, constrain=no_constrain):
     """Projections + RoPE. Query heads are flat-padded with zero heads to
-    cfg.padded_heads(tp); `head_to_kv_map` routes each (possibly padded)
-    query head to its kv head inside blockwise_attention, and the pads are
-    sliced off before w_o. The port has no tensor parallelism yet (tp = 1,
-    no pad), so the reference's sharding constraints have no counterpart."""
+    cfg.padded_heads(tp) so the head axis shards evenly over the model
+    axis; `head_to_kv_map` routes each (possibly padded) query head to its
+    kv head inside blockwise_attention, and the pads are sliced off before
+    w_o. q/k are constrained to the head-sharded layout before RoPE, so the
+    float32 rotation runs on 1/tp of the heads."""
     cdt = dt(cfg, "compute")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     H, Kv = cfg.num_heads, cfg.num_kv_heads
     Hp = cfg.padded_heads(tp)
-    x = x.to(cdt)
-    q = (x @ params["wq"].to(cdt)).reshape(B, S, H, hd)
-    if Hp != H:
-        q = torch.nn.functional.pad(q, (0, 0, 0, Hp - H))
-    k = (x @ params["wk"].to(cdt)).reshape(B, S, Kv, hd)
-    v = (x @ params["wv"].to(cdt)).reshape(B, S, Kv, hd)
-    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+    x = shd.whole_rows(x.to(cdt))
+    # a (H*hd) dim sharded over the model axis splits into (H, hd) only
+    # where the axis divides H (DTensor cannot unflatten an uneven shard)
+    q = shd.split_last(x @ params["wq"].to(cdt), (H, hd))
+    if Hp != H:  # H is then not split (see split_last): the pad is local
+        q = shd.pad(q, (0, 0, 0, Hp - H))
+    k = shd.split_last(x @ params["wk"].to(cdt), (Kv, hd))
+    v = shd.split_last(x @ params["wv"].to(cdt), (Kv, hd))
+    q = apply_rope(constrain(q, "act_heads"), positions, cfg.rope_theta)
+    k = apply_rope(constrain(k, "act_kv_heads"), positions, cfg.rope_theta)
+    return q, k, v
 
 
 def head_to_kv_map(cfg: ModelConfig, tp: int) -> np.ndarray:
@@ -86,13 +102,16 @@ def head_to_kv_map(cfg: ModelConfig, tp: int) -> np.ndarray:
 
 
 def _unpad_heads(out_flat: torch.Tensor, cfg: ModelConfig, tp: int) -> torch.Tensor:
-    """(.., Hp*hd) -> (.., H*hd): drop flat-padded query heads before w_o."""
+    """(.., Hp*hd) -> (.., H*hd): drop flat-padded query heads before w_o.
+    The heads are the major part of the flat dim, so the real ones are its
+    first H*hd columns: a slice, where the reference reshapes to (Hp, hd)
+    and back (the same values; a DTensor gradient sharded over the flat dim
+    could not be split into (H, hd) on the way back). A DTensor's flat dim
+    is gathered first: the slice cuts across its shards."""
     H, hd = cfg.num_heads, cfg.resolved_head_dim()
-    Hp = cfg.padded_heads(tp)
-    if Hp == H:
+    if cfg.padded_heads(tp) == H:
         return out_flat
-    lead = out_flat.shape[:-1]
-    return out_flat.reshape(*lead, Hp, hd)[..., :H, :].reshape(*lead, H * hd)
+    return shd.unshard(out_flat, -1)[..., :H * hd]
 
 
 def _pair_list(n_q: int, n_kv: int, n_kv_per_q: Optional[int], causal: bool) -> np.ndarray:
@@ -125,7 +144,15 @@ def blockwise_attention(
     kv_map: Optional[np.ndarray] = None,  # (H,) query-head -> kv-head
 ) -> torch.Tensor:
     """KV heads are gathered up to the (padded) query-head axis before the
-    block loop, so every block tensor has a single head axis."""
+    block loop, so every block tensor has a single head axis that shards
+    over the model axis. DTensor inputs take `_blockwise_sharded`, which
+    lays the blocks and the softmax carries out as the reference's
+    "attn_blocks" / "attn_carry*" tags do (batch over the data axes, heads
+    over the model axis) and runs these loops on each rank's shard."""
+    if shd.is_dtensor(q):
+        return _blockwise_sharded(q, k, v, q_positions, kv_positions, window=window,
+                                  causal=causal, block_q=block_q, block_kv=block_kv,
+                                  mode=mode, kv_map=kv_map)
     B, S, H, hd = q.shape
     S_kv, Kv = k.shape[1], k.shape[2]
     if kv_map is None:
@@ -218,10 +245,59 @@ def blockwise_attention(
     return out[:, :S_orig].to(q.dtype)
 
 
+def _blockwise_sharded(q, k, v, q_positions, kv_positions, *, window, causal, block_q,
+                       block_kv, mode, kv_map):
+    """`blockwise_attention` of DTensors on each rank's shard: the block
+    loops are independent over the batch and over the heads, so with q's
+    batch over the data axes and its heads over the model axis (the
+    reference's "attn_blocks" and carry layouts) each rank runs the plain
+    loops on its own batch rows and query heads (`local_map`), against the
+    kv heads its query heads read. k and v enter whole over the model axis
+    (kv heads are few), and their gradients leave as partial sums over it.
+    Besides sparing DTensor's dispatch in every block step, this keeps the
+    blocks' 4-D products away from DTensor's view rules, which in torch
+    2.11 refuse to flatten (B, H) with H split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    if kv_map is None:
+        kv_map = np.repeat(np.arange(Kv, dtype=np.int32), H // Kv)
+    if len(kv_map) != H:
+        raise ValueError(f"kv_map has {len(kv_map)} heads, q has {H}")
+    q_pl = [p if p in (Shard(0), Shard(2)) else Replicate() for p in q.placements]
+    b_pl = [Shard(0) if p == Shard(0) else Replicate() for p in q_pl]
+    kv_grad = [Shard(0) if p == Shard(0) else Partial() if p == Shard(2) else Replicate()
+               for p in q_pl]
+    head_dims = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+
+    def local(ql, kl, vl, qpl, kpl):
+        Hl = ql.shape[2]
+        first = 0  # the first query head this rank holds
+        for i in head_dims:
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        first *= Hl
+        out = blockwise_attention(ql, kl, vl, qpl, kpl, window=window, causal=causal,
+                                  block_q=block_q, block_kv=block_kv, mode=mode,
+                                  kv_map=kv_map[first:first + Hl])
+        return out
+
+    fn = local_map(local, out_placements=q_pl,
+                   in_placements=(q_pl, b_pl, b_pl, b_pl, b_pl),
+                   in_grad_placements=(q_pl, kv_grad, kv_grad, b_pl, b_pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, shd.replicate(k, mesh), shd.replicate(v, mesh),
+              shd.replicate(q_positions, mesh), shd.replicate(kv_positions, mesh))
+
+
 def attn_apply_train(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
-                     *, window: int = -1, tp: int = 1, return_kv: bool = False):
+                     *, window: int = -1, constrain=no_constrain, return_kv: bool = False):
     """Full-sequence attention (training / prefill)."""
-    q, k, v = _qkv(params, x, positions, cfg, tp)
+    tp = constrain.tp
+    q, k, v = _qkv(params, x, positions, cfg, tp, constrain)
+    v = constrain(v, "act_kv_heads")
     # prefill (return_kv) is forward-only: the pair-loop layout
     out = blockwise_attention(q, k, v, positions, positions, window=window,
                               mode="infer" if return_kv else "train",
@@ -245,10 +321,11 @@ def init_cache(cfg: ModelConfig, B: int, S_ctx: int, window: int, dtype,
 
 
 def attn_apply_decode(params, x: torch.Tensor, cur_pos, cache: KVCache, cfg: ModelConfig,
-                      *, window: int = -1):
+                      *, window: int = -1, constrain=no_constrain):
     """One-token decode against the cache; returns (out, cache). x: (B, 1, d);
     cur_pos: the new token's absolute position (an int or a 0-dim integer
-    tensor). The cache's slot cur_pos % slots is written in place."""
+    tensor). The cache's slot cur_pos % slots is written in place. A
+    DTensor cache (slots over the model axis) takes `_decode_sharded`."""
     cdt = dt(cfg, "compute")
     B = x.shape[0]
     hd = cfg.resolved_head_dim()
@@ -257,6 +334,9 @@ def attn_apply_decode(params, x: torch.Tensor, cur_pos, cache: KVCache, cfg: Mod
     cur = torch.as_tensor(cur_pos, dtype=torch.long, device=x.device).reshape(())
     positions = cur.expand(B, 1)
     q, k_new, v_new = _qkv(params, x, positions, cfg, tp=1)
+    if shd.is_dtensor(cache.k):
+        o = _decode_sharded(q, k_new, v_new, cur, cache, cfg, window)
+        return o.to(cdt) @ params["wo"].to(cdt), cache
 
     slots = cache.k.shape[1]
     slot = (cur % slots).reshape(1)  # identity when slots covers the context
@@ -276,12 +356,100 @@ def attn_apply_decode(params, x: torch.Tensor, cur_pos, cache: KVCache, cfg: Mod
     return out, cache
 
 
+class _LocalCache:
+    """A DTensor KV cache (batch over the data axes, slots over the model
+    axis) as this rank's local shards: `k`, `v`, `pos` (views: writes land
+    in the cache), `n_loc` slots from global slot `first` of `slots`, the
+    cache's batch placements `batch_pl`, and `local(t)`, which gives a
+    tensor's rows for this rank's batch shard, whole over the model axis."""
+
+    def __init__(self, cache: KVCache):
+        from torch.distributed.tensor import Replicate, Shard
+
+        self.mesh = mesh = cache.k.device_mesh
+        self.batch_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in cache.k.placements]
+        self.slot_dims = [i for i, p in enumerate(cache.k.placements) if p.is_shard(1)]
+        self.k, self.v, self.pos = cache.k.to_local(), cache.v.to_local(), cache.pos.to_local()
+        self.slots, self.n_loc = cache.k.shape[1], self.k.shape[1]
+        first = 0
+        for i in self.slot_dims:
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        self.first = first * self.n_loc
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        return shd.replicate(t, self.mesh).redistribute(self.mesh, self.batch_pl).to_local()
+
+
+def _decode_sharded(q, k_new, v_new, cur, cache: KVCache, cfg: ModelConfig, window: int):
+    """Flash-decode over a cache whose batch is split over the data axes and
+    whose slots are split over the model axis (`sharding.STATE_RULES`).
+
+    DTensor has no rule for an in-place write into one slot of a sharded
+    dim, nor for a softmax combined across shards, so this runs on the
+    local shards: the new token's k/v (whole on every model rank) is
+    written only on the rank that owns its slot (a masked write, no host
+    sync); each rank scores its own slots, keeping its max m_r, its sum
+    l_r = sum exp(s - m_r) and its output o_r = sum p v (p rounded to the
+    compute dtype, as the reference rounds the softmax before its PV
+    product); then one all-reduce (MAX) of m over the slot-sharding mesh
+    dims and one (SUM) of [l_r, o_r] scaled by exp(m_r - m) give
+    out = o / l. Returns the (B, 1, H*hd) output, batch-sharded as the
+    cache and whole over the model axis."""
+    from torch.distributed.tensor import DTensor
+
+    cdt = dt(cfg, "compute")
+    hd = cfg.resolved_head_dim()
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
+    G = H // Kv
+    lc = _LocalCache(cache)
+    mesh, slot_dims = lc.mesh, lc.slot_dims
+    q, k_new, v_new = lc.local(q), lc.local(k_new), lc.local(v_new)
+    B = q.shape[0]
+    k_loc, v_loc, p_loc = lc.k, lc.v, lc.pos
+    slots, n_loc, first = lc.slots, lc.n_loc, lc.first
+    rel = (cur % slots) - first
+    own = (rel >= 0) & (rel < n_loc)
+    idx = torch.clamp(rel, 0, n_loc - 1).reshape(1)
+    for buf, new in ((k_loc, k_new), (v_loc, v_new)):
+        old = buf.index_select(1, idx)
+        buf.index_copy_(1, idx, torch.where(own, new.to(buf.dtype), old))
+    old = p_loc.index_select(1, idx)
+    p_loc.index_copy_(1, idx, torch.where(own, cur.to(torch.int32).expand_as(old), old))
+
+    qg = q.reshape(B, Kv, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_loc.to(cdt).float()) * hd**-0.5
+    valid = (p_loc >= 0) & (p_loc <= cur)
+    if window > 0:
+        valid = valid & (cur - p_loc < window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)  # (B, Kv, G)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(cdt).float(), v_loc.to(cdt).float())
+    if slot_dims:
+        group = mesh.get_group(slot_dims[0]) if len(slot_dims) == 1 else None
+        if group is None:
+            raise NotImplementedError("decode over slots split by two mesh dims")
+        m_all = m.clone()
+        dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+        scale = torch.exp(m - m_all)
+        packed = torch.cat([(l * scale)[..., None], o * scale[..., None]], dim=-1)
+        dist.all_reduce(packed, group=group)
+        l, o = packed[..., 0], packed[..., 1:]
+    out = (o / l[..., None]).reshape(B, 1, H * hd)
+    return DTensor.from_local(out, mesh, lc.batch_pl, run_check=False)
+
+
 def cache_from_prefill(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
                        positions: torch.Tensor, window: int) -> KVCache:
     """Fill a pre-allocated decode cache from prefill KV, in place.
 
     Windowed layers keep only the last `slots` positions, ring-indexed by
-    absolute position (so later decode steps write consistently)."""
+    absolute position (so later decode steps write consistently). A DTensor
+    cache (slots over the model axis) takes `_fill_sharded`."""
+    if shd.is_dtensor(cache.k):
+        _fill_sharded(cache, k, v, positions)
+        return cache
     B, S = positions.shape
     slots = cache.k.shape[1]
     if S <= slots:
@@ -296,3 +464,27 @@ def cache_from_prefill(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     cache.v[bidx, idx] = v_tail.to(cache.v.dtype)
     cache.pos[bidx, idx] = p_tail.to(torch.int32)
     return cache
+
+
+def _fill_sharded(cache: KVCache, k, v, positions) -> None:
+    """`cache_from_prefill` on each rank's shard of a slot-sharded cache:
+    DTensor has no rule for writing a slice of a sharded dim in place. Each
+    rank takes k, v and the positions of its batch rows (whole over the
+    model axis: one layer's, not the cache) and writes the entries whose
+    slot it owns (the plain path's slot: the entry's index, or its
+    position mod the slots on a ring that wraps)."""
+    lc = _LocalCache(cache)
+    k, v, positions = lc.local(k), lc.local(v), lc.local(positions)
+    B, S = positions.shape
+    n = min(S, lc.slots)
+    k, v, positions = k[:, S - n:], v[:, S - n:], positions[:, S - n:]
+    if S <= lc.slots:
+        slot = torch.arange(n, device=positions.device).expand(B, n)
+    else:
+        slot = positions.long() % lc.slots
+    rel = slot - lc.first
+    b, i = torch.nonzero((rel >= 0) & (rel < lc.n_loc), as_tuple=True)
+    r = rel[b, i]
+    lc.k[b, r] = k[b, i].to(lc.k.dtype)
+    lc.v[b, r] = v[b, i].to(lc.v.dtype)
+    lc.pos[b, r] = positions[b, i].to(torch.int32)

@@ -12,14 +12,16 @@ leaves, run layer by layer (under `torch.utils.checkpoint` when cfg.remat
 and autograd records, as the reference checkpoints its scan bodies). The
 decode state keeps each layer's self-attention KV cache and the
 cross-attention K/V, computed once at prefill; decode writes its KV slot
-in place.
+in place. The `constrain` hooks sit where the reference's do (the
+residual stream after each block, the cross-attention's queries, the
+decode logits); on a device mesh the decode state is placed by the state
+rules.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -29,6 +31,8 @@ from repro_torch.models.layers import (apply_rope, chunked_softmax_xent, dt,
                                        mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
 from repro_torch.models.transformer import Tree, _resolve, _stack, _unstack
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import no_constrain
 
 
 def _enc_layer_init(gen, cfg: ModelConfig, device) -> Tree:
@@ -70,24 +74,28 @@ def _frame_positions(B: int, F_: int, device) -> torch.Tensor:
     return torch.arange(F_, dtype=torch.int32, device=device)[None].expand(B, F_)
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig, mode: str = "train") -> torch.Tensor:
+def encode(params, frames: torch.Tensor, cfg: ModelConfig, constrain=no_constrain,
+           mode: str = "train") -> torch.Tensor:
     """frames: (B, F, d) stub-frontend embeddings -> (B, F, d) encodings."""
     B, F_, _ = frames.shape
     x = frames.to(dt(cfg, "compute"))
     positions = _frame_positions(B, F_, x.device)
-    kv_map = attn.head_to_kv_map(cfg, 1)
+    tp = constrain.tp
+    kv_map = attn.head_to_kv_map(cfg, tp)
     layers = _unstack(params["enc_layers"], cfg.encoder_layers)
 
     def body(xc, i):
         layer = layers[i]
         h = rmsnorm(layer["ln1"], xc, cfg.norm_eps)
-        q, k, v = attn._qkv(layer["attn"], h, positions, cfg)
+        q, k, v = attn._qkv(layer["attn"], h, positions, cfg, tp, constrain)
         out = attn.blockwise_attention(q, k, v, positions, positions, window=-1,
                                        causal=False, mode=mode, kv_map=kv_map)
-        out = attn._unpad_heads(out, cfg, 1) @ layer["attn"]["wo"].to(out.dtype)
-        xc = xc + out.to(xc.dtype)
+        out = attn._unpad_heads(out, cfg, tp) @ layer["attn"]["wo"].to(out.dtype)
+        xc = constrain(xc + shd.grad_rows_whole(out.to(xc.dtype)), "act_embed")
         h = rmsnorm(layer["ln2"], xc, cfg.norm_eps)
-        return xc + mlp_apply(layer["mlp"], h, cfg).to(xc.dtype)
+        out = mlp_apply(layer["mlp"], h, cfg, constrain=constrain)
+        xc = xc + shd.grad_rows_whole(out.to(xc.dtype))
+        return constrain(xc, "act_embed")
 
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.encoder_layers):
@@ -112,13 +120,15 @@ def _cross_kv(layer, enc_out: torch.Tensor, enc_pos: torch.Tensor, cfg: ModelCon
 
 
 def _decoder(params, x, positions, enc_out, enc_pos, cfg: ModelConfig, *,
-             states: DecState | None, cur_pos, mode: str):
+             states: DecState | None, cur_pos, mode: str, constrain=no_constrain):
     """mode "train" without states: training; "train" with states: prefill,
     filling them in place; "decode": one token against them."""
     cdt = dt(cfg, "compute")
     hd = cfg.resolved_head_dim()
     H = cfg.num_heads
-    kv_map = attn.head_to_kv_map(cfg, 1)
+    tp = constrain.tp
+    Hp = cfg.padded_heads(tp)
+    kv_map = attn.head_to_kv_map(cfg, tp)
     layers = _unstack(params["dec_layers"], cfg.num_layers)
     xmode = "train" if (mode == "train" and states is None) else "infer"
 
@@ -131,19 +141,23 @@ def _decoder(params, x, positions, enc_out, enc_pos, cfg: ModelConfig, *,
         if mode == "train":
             if kv is not None:
                 out, (k, v) = attn.attn_apply_train(layer["attn"], h, positions, cfg,
-                                                    return_kv=True)
+                                                    constrain=constrain, return_kv=True)
                 attn.cache_from_prefill(kv, k, v, positions, -1)
             else:
-                out = attn.attn_apply_train(layer["attn"], h, positions, cfg)
+                out = attn.attn_apply_train(layer["attn"], h, positions, cfg,
+                                            constrain=constrain)
         else:
-            out, _ = attn.attn_apply_decode(layer["attn"], h, cur_pos, kv, cfg)
-        xc = xc + out.to(xc.dtype)
+            out, _ = attn.attn_apply_decode(layer["attn"], h, cur_pos, kv, cfg,
+                                            constrain=constrain)
+        xc = constrain(xc + shd.grad_rows_whole(out.to(xc.dtype)), "act_embed")
 
         # cross attention
         h = rmsnorm(layer["lnx"], xc, cfg.norm_eps)
         B, S, _ = h.shape
-        q = (h.to(cdt) @ layer["xattn"]["wq"].to(cdt)).reshape(B, S, H, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
+        q = shd.split_last(h.to(cdt) @ layer["xattn"]["wq"].to(cdt), (H, hd))
+        if Hp != H:  # H is then not split (see split_last): the pad is local
+            q = shd.pad(q, (0, 0, 0, Hp - H))
+        q = constrain(apply_rope(q, positions, cfg.rope_theta), "act_heads")
         if mode == "train":
             kx, vx = _cross_kv(layer, enc_out, enc_pos, cfg)
             if states is not None:
@@ -153,12 +167,14 @@ def _decoder(params, x, positions, enc_out, enc_pos, cfg: ModelConfig, *,
             kx, vx = states.cross_k[i], states.cross_v[i]
         out = attn.blockwise_attention(q, kx, vx, positions, enc_pos, window=-1,
                                        causal=False, mode=xmode, kv_map=kv_map)
-        out = attn._unpad_heads(out, cfg, 1) @ layer["xattn"]["wo"].to(cdt)
-        xc = xc + out.to(xc.dtype)
+        out = attn._unpad_heads(out, cfg, tp) @ layer["xattn"]["wo"].to(cdt)
+        xc = constrain(xc + shd.grad_rows_whole(out.to(xc.dtype)), "act_embed")
 
         # mlp
         h = rmsnorm(layer["ln2"], xc, cfg.norm_eps)
-        return xc + mlp_apply(layer["mlp"], h, cfg).to(xc.dtype)
+        out = mlp_apply(layer["mlp"], h, cfg, constrain=constrain)
+        xc = xc + shd.grad_rows_whole(out.to(xc.dtype))
+        return constrain(xc, "act_embed")
 
     remat = cfg.remat and mode == "train" and states is None and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
@@ -168,7 +184,7 @@ def _decoder(params, x, positions, enc_out, enc_pos, cfg: ModelConfig, *,
 
 def _causal_labels(batch: Dict[str, torch.Tensor], device) -> tuple:
     tokens = batch["tokens"]
-    labels = F.pad(tokens[:, 1:], (0, 1))
+    labels = shd.pad(tokens[:, 1:], (0, 1))
     mask = batch.get("loss_mask")
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=device) \
         if mask is None else mask.to(torch.float32).clone()
@@ -176,10 +192,11 @@ def _causal_labels(batch: Dict[str, torch.Tensor], device) -> tuple:
     return labels, mask
 
 
-def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> tuple:
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               constrain=no_constrain) -> tuple:
     """Next-token CE of the decoder given the frames. batch: tokens (B, S),
     encoder_frames (B, F, d). Returns (loss, {"ce", "aux"}), aux = 0."""
-    enc_out = encode(params, batch["encoder_frames"], cfg, mode="train")
+    enc_out = encode(params, batch["encoder_frames"], cfg, constrain, mode="train")
     B, F_, _ = enc_out.shape
     enc_pos = _frame_positions(B, F_, enc_out.device)
     tokens = batch["tokens"]
@@ -187,9 +204,10 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> tupl
     x = embed_lookup(params["embed"], tokens, cfg)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     x, _ = _decoder(params, x, positions, enc_out, enc_pos, cfg, states=None, cur_pos=None,
-                    mode="train")
+                    mode="train", constrain=constrain)
     labels, mask = _causal_labels(batch, x.device)
-    ce = chunked_softmax_xent(x, labels, mask, params["embed"], None, cfg)
+    ce = chunked_softmax_xent(x, labels, mask, params["embed"], None, cfg,
+                              constrain=constrain)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
 
@@ -208,26 +226,29 @@ def init_decode_state(cfg: ModelConfig, B: int, S_ctx: int, *, device="cuda") ->
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            total_slots: int | None = None):
+            constrain=no_constrain, total_slots: int | None = None):
     """Encode the frames and run the prompt, building the decode state;
     returns (last_logits, states). total_slots: self-attention KV capacity
     (defaults to the prompt length + 1)."""
-    enc_out = encode(params, batch["encoder_frames"], cfg, mode="infer")
+    enc_out = encode(params, batch["encoder_frames"], cfg, constrain, mode="infer")
     B, F_, _ = enc_out.shape
     enc_pos = _frame_positions(B, F_, enc_out.device)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = embed_lookup(params["embed"], tokens, cfg)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    states = init_decode_state(cfg, B, total_slots or S + 1, device=x.device)
-    states.enc_pos.copy_(enc_pos)
+    states = shd.init_states(
+        lambda dev: init_decode_state(cfg, B, total_slots or S + 1, device=dev), x.device,
+        constrain.mesh)
+    states = states._replace(enc_pos=shd.place_like(enc_pos, states.enc_pos))
     x, states = _decoder(params, x, positions, enc_out, enc_pos, cfg, states=states,
-                         cur_pos=None, mode="train")
+                         cur_pos=None, mode="train", constrain=constrain)
     logits = logits_from(params["embed"], None, x[:, -1:, :], cfg)
     return logits[:, 0], states
 
 
-def decode_step(params, tokens: torch.Tensor, cur_pos, states: DecState, cfg: ModelConfig):
+def decode_step(params, tokens: torch.Tensor, cur_pos, states: DecState, cfg: ModelConfig,
+                constrain=no_constrain):
     """One-token serve step; returns (logits (B, V) float32, states), the
     self-attention caches advanced in place."""
     x = embed_lookup(params["embed"], tokens, cfg)
@@ -235,6 +256,6 @@ def decode_step(params, tokens: torch.Tensor, cur_pos, states: DecState, cfg: Mo
     cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=x.device).reshape(())
     positions = cur.expand(B, 1)
     x, states = _decoder(params, x, positions, None, states.enc_pos, cfg, states=states,
-                         cur_pos=cur, mode="decode")
+                         cur_pos=cur, mode="decode", constrain=constrain)
     logits = logits_from(params["embed"], None, x, cfg)
-    return logits[:, 0].float(), states
+    return constrain(logits[:, 0].float(), "logits"), states

@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import no_constrain
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -88,13 +90,15 @@ def mlp_init(gen, cfg: ModelConfig, device, d: int | None = None, f: int | None 
             "w_down": dense_init(gen, f, d, cfg, device)}
 
 
-def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig,
+              constrain=no_constrain) -> torch.Tensor:
     cdt = dt(cfg, "compute")
-    x = x.to(cdt)
+    x = shd.whole_rows(x.to(cdt))
     if cfg.act == "swiglu":
         h = F.silu(x @ params["w_gate"].to(cdt)) * (x @ params["w_up"].to(cdt))
     else:  # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ params["w_up"].to(cdt), approximate="tanh")
+    h = constrain(h, "ffn")
     return h @ params["w_down"].to(cdt)
 
 
@@ -113,7 +117,10 @@ def embed_init(gen, cfg: ModelConfig, device):
 
 
 def embed_lookup(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["table"].to(dt(cfg, "compute"))[tokens] * (cfg.d_model**0.5)
+    table = params["table"].to(dt(cfg, "compute"))
+    if shd.is_dtensor(table):
+        return shd.gather_rows(table, tokens) * (cfg.d_model**0.5)
+    return table[tokens] * (cfg.d_model**0.5)
 
 
 def unembed_init(gen, cfg: ModelConfig, device):
@@ -124,6 +131,7 @@ def logits_from(params_embed, params_unembed, x: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """Logits over the PADDED vocab (pad ids masked to -1e30)."""
     cdt = dt(cfg, "compute")
+    x = shd.whole_rows(x)
     if cfg.tie_embeddings:
         logits = x.to(cdt) @ params_embed["table"].to(cdt).T
     else:
@@ -135,28 +143,34 @@ def logits_from(params_embed, params_unembed, x: torch.Tensor,
 
 
 def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor, loss_mask: torch.Tensor,
-                         params_embed, params_unembed, cfg: ModelConfig) -> torch.Tensor:
+                         params_embed, params_unembed, cfg: ModelConfig,
+                         constrain=no_constrain) -> torch.Tensor:
     """Mean CE over masked positions without materializing (B, S, V).
 
     Loops over sequence chunks; per chunk the (B, c, V) logits live
     briefly and reduce to float32 sums. The reference's scan keeps no
     chunk's logits for its backward; here each chunk runs under
     `torch.utils.checkpoint`, so autograd saves only the chunk's inputs and
-    recomputes its logits in the backward.
+    recomputes its logits in the backward. The logits are placed by the
+    "logits" tag (vocab over the model axis).
     """
     B, S, _ = x.shape
     c = min(cfg.logits_chunk, S)
     pad = (-S) % c
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad))
-        loss_mask = F.pad(loss_mask, (0, pad))
+        x = shd.pad(x, (0, 0, 0, pad))
+        labels = shd.pad(labels, (0, pad))
+        loss_mask = shd.pad(loss_mask, (0, pad))
 
     def chunk_sums(xc, lc, mc):
-        logits = logits_from(params_embed, params_unembed, xc, cfg).float()  # (B, c, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
-        return torch.sum((lse - gold) * mc)
+        logits = logits_from(params_embed, params_unembed, xc, cfg)  # (B, c, V)
+        logits = constrain(logits.float(), "logits")
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        # (B, c, 1) throughout: a gather along a vocab-sharded dim is a
+        # masked partial sum in DTensor, and its mask keeps the gather's
+        # shape (dropping the last dim before the reduction breaks it)
+        gold = torch.gather(logits, -1, lc[..., None].long())
+        return torch.sum((lse - gold) * mc[..., None])
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -167,4 +181,6 @@ def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor, loss_mask: torch
         else:
             tot = tot + chunk_sums(xc, lc, mc)
         cnt = cnt + torch.sum(mc)
-    return tot / torch.clamp(cnt, min=1.0)
+    # on a mesh tot is a partial sum over the batch and vocab shards: the
+    # loss is made whole on every rank before anything adds to it
+    return shd.replicated(tot) / torch.clamp(shd.replicated(cnt), min=1.0)

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import encdec, transformer
+from repro_torch.parallel.sharding import no_constrain
 
 Tree = Any
 
@@ -24,22 +25,27 @@ Tree = Any
 class Model:
     cfg: ModelConfig
     init: Callable[..., Tree]  # init(seed=0, *, device="cuda")
-    train_loss: Callable[..., tuple]  # train_loss(params, batch)
-    prefill: Callable[..., tuple]  # prefill(params, batch, total_slots=None)
-    decode_step: Callable[..., tuple]  # decode_step(params, tokens, pos, states)
+    train_loss: Callable[..., tuple]  # train_loss(params, batch, constrain=id)
+    prefill: Callable[..., tuple]  # prefill(params, batch, constrain=id, total_slots=None)
+    decode_step: Callable[..., tuple]  # decode_step(params, tokens, pos, states, constrain=id)
     init_decode_state: Callable[..., Tree]  # init_decode_state(B, S, *, device="cuda")
 
 
 def build(cfg: ModelConfig) -> Model:
     """The model of cfg's family: the audio family's encoder-decoder
-    (`encdec`), every other family's decoder (`transformer`)."""
+    (`encdec`), every other family's decoder (`transformer`). Each step
+    takes the reference's `constrain` hook (`parallel.sharding.
+    make_constrain`; the identity by default)."""
     mod = encdec if cfg.family == "audio" else transformer
     return Model(
         cfg=cfg,
         init=lambda seed=0, *, device="cuda": mod.init_params(cfg, seed=seed, device=device),
-        train_loss=lambda p, b: mod.train_loss(p, b, cfg),
-        prefill=lambda p, b, total_slots=None: mod.prefill(p, b, cfg, total_slots=total_slots),
-        decode_step=lambda p, t, pos, st: mod.decode_step(p, t, pos, st, cfg),
+        train_loss=lambda p, b, constrain=no_constrain: mod.train_loss(
+            p, b, cfg, constrain=constrain),
+        prefill=lambda p, b, constrain=no_constrain, total_slots=None: mod.prefill(
+            p, b, cfg, constrain=constrain, total_slots=total_slots),
+        decode_step=lambda p, t, pos, st, constrain=no_constrain: mod.decode_step(
+            p, t, pos, st, cfg, constrain=constrain),
         init_decode_state=lambda B, S, *, device="cuda": mod.init_decode_state(
             cfg, B, S, device=device),
     )

@@ -24,6 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, dt, normal
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import no_constrain
 from repro_torch.temporal.pskf import associative_scan
 
 LRU_C = 8.0
@@ -66,13 +68,13 @@ def _conv1d_causal(params, u: torch.Tensor, tail: torch.Tensor):
     return out + params["conv_b"].to(u.dtype), ext[:, -(CONV_W - 1):]
 
 
-def _lru_gates(params, u: torch.Tensor, cfg: ModelConfig):
+def _lru_gates(params, u: torch.Tensor, cfg: ModelConfig, constrain=no_constrain):
     cdt = dt(cfg, "compute")
     r = torch.sigmoid((u @ params["w_a"].to(cdt)).float())
     i = torch.sigmoid((u @ params["w_i"].to(cdt)).float())
-    log_a = LRU_C * r * F.logsigmoid(params["lam"])  # (..., d) < 0
+    log_a = LRU_C * r * shd.pointwise(F.logsigmoid, params["lam"])  # (..., d) < 0
     b = torch.sqrt(-torch.expm1(2.0 * log_a)) * i * u.float()  # sqrt(1 - a^2)
-    return log_a, b
+    return constrain(log_a, "act_chan"), constrain(b, "act_chan")
 
 
 def _combine(left, right):
@@ -81,13 +83,17 @@ def _combine(left, right):
     return [la1 + la2, torch.exp(la2) * b1 + b2]
 
 
-def rglru_apply_train(params, x: torch.Tensor, state: RGLRUState, cfg: ModelConfig):
-    """x: (B, T, d); returns (out, new_state)."""
+def rglru_apply_train(params, x: torch.Tensor, state: RGLRUState, cfg: ModelConfig,
+                      constrain=no_constrain):
+    """x: (B, T, d); returns (out, new_state). The branch tensors are
+    channel-sharded over the model axis ("act_chan"): the conv and the scan
+    are per channel, so they run on local channels."""
     cdt = dt(cfg, "compute")
-    gate = F.gelu(x.to(cdt) @ params["w_gate"].to(cdt), approximate="tanh")
-    u = x.to(cdt) @ params["w_x"].to(cdt)
+    gate = constrain(F.gelu(x.to(cdt) @ params["w_gate"].to(cdt), approximate="tanh"),
+                     "act_chan")
+    u = constrain(x.to(cdt) @ params["w_x"].to(cdt), "act_chan")
     u, conv_tail = _conv1d_causal(params, u, state.conv)
-    log_a, b = _lru_gates(params, u, cfg)
+    log_a, b = _lru_gates(params, u, cfg, constrain)
 
     # prepend the carried state as a pseudo-step: h_0 carries in via the b slot
     log_a_ext = torch.cat([torch.zeros_like(log_a[:, :1]), log_a], dim=1)
@@ -99,7 +105,8 @@ def rglru_apply_train(params, x: torch.Tensor, state: RGLRUState, cfg: ModelConf
     return out, RGLRUState(h[:, -1, :], conv_tail)
 
 
-def rglru_apply_decode(params, x: torch.Tensor, state: RGLRUState, cfg: ModelConfig):
+def rglru_apply_decode(params, x: torch.Tensor, state: RGLRUState, cfg: ModelConfig,
+                       constrain=no_constrain):
     """x: (B, 1, d) single step."""
     cdt = dt(cfg, "compute")
     xt = x.to(cdt)

@@ -26,6 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, dt
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import no_constrain
 
 CHUNK = 64
 LORA_RANK = 64
@@ -120,7 +122,8 @@ def _chunk(S, ri, ki, vi, lwi, u):
     return S_new, o_intra + o_cross
 
 
-def timemix_apply_chunked(params, x: torch.Tensor, state: TimeMixState, cfg: ModelConfig):
+def timemix_apply_chunked(params, x: torch.Tensor, state: TimeMixState, cfg: ModelConfig,
+                          constrain=no_constrain):
     """x: (B, T, d), any T (trailing pad steps are exact no-ops: k = 0,
     log w = 0). Returns (out, new_state)."""
     cdt = dt(cfg, "compute")
@@ -148,11 +151,11 @@ def timemix_apply_chunked(params, x: torch.Tensor, state: TimeMixState, cfg: Mod
     u = params["u"].reshape(H, K)
 
     def chunked(t):  # (B, T, H, K) -> (n, B, c, H, K) float32, zero-padded
-        t = F.pad(t, (0, 0, 0, 0, 0, pad))  # log 1 = 0: a padded step decays nothing
+        t = shd.pad(t, (0, 0, 0, 0, 0, pad))  # log 1 = 0: a padded step decays nothing
         return t.reshape(B, n, c, H, K).transpose(0, 1).float()
 
-    rc, kc, vc, wc = (chunked(t) for t in (r, k, v, logw))
-    S = state.S
+    rc, kc, vc, wc = (constrain(chunked(t), "rwkv_chunks") for t in (r, k, v, logw))
+    S = constrain(state.S, "rwkv_state")
     outs = []
     for i in range(n):
         args = (S, rc[i], kc[i], vc[i], wc[i], u)
@@ -167,7 +170,8 @@ def timemix_apply_chunked(params, x: torch.Tensor, state: TimeMixState, cfg: Mod
     return out, TimeMixState(S, x[:, -1, :])
 
 
-def timemix_apply_decode(params, x: torch.Tensor, state: TimeMixState, cfg: ModelConfig):
+def timemix_apply_decode(params, x: torch.Tensor, state: TimeMixState, cfg: ModelConfig,
+                         constrain=no_constrain):
     """x: (B, 1, d) single-token recurrence."""
     cdt = dt(cfg, "compute")
     B, _, d = x.shape

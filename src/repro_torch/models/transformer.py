@@ -21,6 +21,12 @@ MLP); a MoE config's FFN is `models.moe` (plus the dense MLP as a
 residual where cfg.moe_dense_residual). A `frontend_embeds` batch entry
 (the vlm family) is a multimodal prefix before the tokens. The
 encoder-decoder family is `models.encdec`.
+
+Every entry point takes the reference's `constrain` hook
+(`parallel.sharding.make_constrain`): on a device mesh the tensors are
+DTensors and the hook pins the residual stream, the attention heads and
+the FFN hidden to the rules table's placements; off any mesh it is the
+identity.
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ from repro_torch.models.layers import (chunked_softmax_xent, dt, embed_init,
                                        embed_lookup, logits_from, mlp_apply,
                                        mlp_init, rmsnorm, rmsnorm_init,
                                        unembed_init)
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import no_constrain
 
 Tree = Any
 AUX_LOSS_WEIGHT = 0.01
@@ -117,56 +125,60 @@ def _layer_state_init(cfg: ModelConfig, mixer: str, window: int, B: int, S_ctx: 
 
 def _layer_apply(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                  *, mixer: str, window: int, mode: str, state: Optional[LayerState],
-                 cur_pos) -> tuple:
+                 cur_pos, constrain=no_constrain) -> tuple:
     """Returns (x_out, new_state, aux_loss). mode "train" with a state is the
     prefill; "decode" runs one token against the state."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    # the norm's output pinned to the sequence-sharded layout, so the
+    # float32 norm runs on 1/tp of the sequence
+    h = constrain(rmsnorm(params["ln1"], x, cfg.norm_eps), "act_embed")
     new_state = state
     if mixer == "attn":
         if mode == "train":
             if state is not None:  # prefill: also build the cache
                 out, (k, v) = attn.attn_apply_train(params["attn"], h, positions, cfg,
-                                                    window=window, return_kv=True)
+                                                    window=window, constrain=constrain,
+                                                    return_kv=True)
                 new_state = state._replace(kv=attn.cache_from_prefill(state.kv, k, v,
                                                                       positions, window))
             else:
-                out = attn.attn_apply_train(params["attn"], h, positions, cfg, window=window)
+                out = attn.attn_apply_train(params["attn"], h, positions, cfg, window=window,
+                                            constrain=constrain)
         else:
             out, kv = attn.attn_apply_decode(params["attn"], h, cur_pos, state.kv, cfg,
-                                             window=window)
+                                             window=window, constrain=constrain)
             new_state = state._replace(kv=kv)
     elif mixer == "rglru":
         st = state.rglru if state is not None else rglru_mod.rglru_state_init(
             cfg, x.shape[0], x.dtype, x.device)
         fn = rglru_mod.rglru_apply_train if mode == "train" else rglru_mod.rglru_apply_decode
-        out, st = fn(params["rglru"], h, st, cfg)
+        out, st = fn(params["rglru"], h, st, cfg, constrain=constrain)
         new_state = state._replace(rglru=st) if state is not None else None
     elif mixer == "rwkv":
         st = state.rwkv_tm if state is not None else rwkv_mod.timemix_state_init(
             cfg, x.shape[0], x.dtype, x.device)
         fn = rwkv_mod.timemix_apply_chunked if mode == "train" else rwkv_mod.timemix_apply_decode
-        out, st = fn(params["rwkv"], h, st, cfg)
+        out, st = fn(params["rwkv"], h, st, cfg, constrain=constrain)
         new_state = state._replace(rwkv_tm=st) if state is not None else None
     else:
         raise ValueError(mixer)
-    x = x + out.to(x.dtype)
+    x = constrain(x + shd.grad_rows_whole(out.to(x.dtype)), "act_embed")
 
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    h = constrain(rmsnorm(params["ln2"], x, cfg.norm_eps), "act_embed")
     if mixer == "rwkv":
         prev = state.cmix_prev if state is not None else torch.zeros_like(h[:, -1])
         out, prev = rwkv_mod.chanmix_apply(params["cmix"], h, prev, cfg)
         if state is not None:
             new_state = new_state._replace(cmix_prev=prev)
     elif cfg.num_experts:
-        moe_out = moe_mod.moe_apply(params["moe"], h, cfg)
+        moe_out = moe_mod.moe_apply(params["moe"], h, cfg, constrain=constrain)
         out, aux = moe_out.y, moe_out.aux_loss
         if cfg.moe_dense_residual:
-            out = out + mlp_apply(params["mlp"], h, cfg)
+            out = out + mlp_apply(params["mlp"], h, cfg, constrain=constrain)
     else:
-        out = mlp_apply(params["mlp"], h, cfg)
-    x = x + out.to(x.dtype)
-    return x, new_state, aux
+        out = mlp_apply(params["mlp"], h, cfg, constrain=constrain)
+    x = x + shd.grad_rows_whole(out.to(x.dtype))
+    return constrain(x, "act_embed"), new_state, aux
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +257,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Tree:
 
 
 def _backbone(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
-              *, mode: str, states: Optional[Tree], cur_pos):
+              *, mode: str, states: Optional[Tree], cur_pos, constrain=no_constrain):
     """Runs all segments. states (if given) mirrors the segment structure:
     states[f"seg{si}"] = tuple over period positions of stacked LayerStates,
     filled (prefill) or advanced (decode) in place: KV caches by the
@@ -263,7 +275,8 @@ def _backbone(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: Model
                     st = _state_map(lambda t: t[r], _seg_state[j])
                 xc, new_st, aux = _layer_apply(_per_pos[j][r], xc, positions, cfg,
                                                mixer=_seg.mixers[j], window=_seg.windows[j],
-                                               mode=mode, state=st, cur_pos=cur_pos)
+                                               mode=mode, state=st, cur_pos=cur_pos,
+                                               constrain=constrain)
                 if st is not None:
                     _store(st, new_st)
                 aux_r = aux_r + aux
@@ -313,42 +326,49 @@ def _input_embeddings(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     return x
 
 
-def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> tuple:
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               constrain=no_constrain) -> tuple:
     """Next-token CE over the text positions (+ the MoE aux term, 0
     without experts). batch: tokens (B, S) [, frontend_embeds (B, P, d)].
     Returns (loss, {"ce", "aux"})."""
     tokens = batch["tokens"]
-    x = _input_embeddings(params, batch, cfg)
+    x = constrain(_input_embeddings(params, batch, cfg), "act_embed")
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    x, _, aux = _backbone(params, x, positions, cfg, mode="train", states=None, cur_pos=None)
+    x, _, aux = _backbone(params, x, positions, cfg, mode="train", states=None, cur_pos=None,
+                          constrain=constrain)
     x = x[:, S - tokens.shape[1]:]  # the text after the frontend prefix
-    labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    labels = shd.pad(tokens[:, 1:], (0, 1))
     mask = batch.get("loss_mask")
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device) \
         if mask is None else mask.to(torch.float32).clone()
     mask[:, -1] = 0.0
-    ce = chunked_softmax_xent(x, labels, mask, params["embed"], params.get("unembed"), cfg)
+    ce = chunked_softmax_xent(x, labels, mask, params["embed"], params.get("unembed"), cfg,
+                              constrain=constrain)
     loss = ce + AUX_LOSS_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux}
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            total_slots: int | None = None):
+            constrain=no_constrain, total_slots: int | None = None):
     """Full-context forward building decode caches; returns (last_logits,
     states). total_slots: KV-cache capacity (>= prefill length + planned
-    decode steps); defaults to prefill length + 1."""
+    decode steps); defaults to prefill length + 1. On a device mesh the
+    states are placed by the state rules."""
     x = _input_embeddings(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    states = init_decode_state(cfg, B, total_slots or S + 1, device=x.device)
+    states = shd.init_states(
+        lambda dev: init_decode_state(cfg, B, total_slots or S + 1, device=dev), x.device,
+        constrain.mesh)
     x, states, _ = _backbone(params, x, positions, cfg, mode="train", states=states,
-                             cur_pos=None)
+                             cur_pos=None, constrain=constrain)
     logits = logits_from(params["embed"], params.get("unembed"), x[:, -1:, :], cfg)
     return logits[:, 0], states
 
 
-def decode_step(params, tokens: torch.Tensor, cur_pos, states: Tree, cfg: ModelConfig):
+def decode_step(params, tokens: torch.Tensor, cur_pos, states: Tree, cfg: ModelConfig,
+                constrain=no_constrain):
     """One-token serve step. tokens: (B, 1); cur_pos: absolute position (an
     int or a 0-dim integer tensor). Returns (logits (B, V) float32, states),
     the states advanced in place."""
@@ -357,6 +377,6 @@ def decode_step(params, tokens: torch.Tensor, cur_pos, states: Tree, cfg: ModelC
     cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=x.device).reshape(())
     positions = cur.expand(B, 1)
     x, states, _ = _backbone(params, x, positions, cfg, mode="decode", states=states,
-                             cur_pos=cur)
+                             cur_pos=cur, constrain=constrain)
     logits = logits_from(params["embed"], params.get("unembed"), x, cfg)
-    return logits[:, 0].float(), states
+    return constrain(logits[:, 0].float(), "logits"), states

@@ -94,8 +94,8 @@ class AdamState(NamedTuple):
 def adam_init(params: Tree, config: AdamConfig) -> AdamState:
     dtype = _STATE_DTYPES[config.state_dtype] if config.state_dtype else None
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=dtype or p.dtype, device=p.device)
+    def zeros(p):  # placed as p is, where p is a DTensor
+        return torch.zeros_like(p, dtype=dtype or p.dtype)
 
     device = flatten(params)[1][0].device
     return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),

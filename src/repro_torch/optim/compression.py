@@ -7,8 +7,8 @@ keep the k largest-magnitude entries per tensor and carry the residual
 into the next step. Error feedback loses nothing over the steps: the sum
 of what was sent plus the residual is the sum of the raw gradients.
 
-As in the reference, nothing in the train step calls it yet: it waits for
-the pod axis of `parallel/sharding`.
+As in the reference, no launcher wires it into the train step (the
+reference's `launch/` never calls it).
 """
 from __future__ import annotations
 

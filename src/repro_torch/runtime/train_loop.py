@@ -12,9 +12,11 @@
 
 Checkpoints are the port's `checkpoint.manager` layout, whose keys and
 files are the reference's: {"params", "opt"} with extra {"step", "data"},
-so a loop of either package resumes the other's. The reference's
-`shardings=` (restore onto a device mesh) waits for `parallel/sharding`:
-every leaf is restored onto the device of the loop's parameters.
+so a loop of either package resumes the other's. `shardings=(param
+shardings, opt shardings)` (a step bundle's `in_shardings[:2]`) places
+the restored leaves on the current mesh, which need not be the mesh that
+saved them; without it every leaf is restored onto the device of the
+loop's parameters.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import signal
 import statistics
 import tempfile
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -49,7 +51,7 @@ class LoopConfig:
 
 class TrainLoop:
     def __init__(self, step_fn: Callable, params: Tree, opt_state: Tree, data_iter,
-                 loop_cfg: LoopConfig):
+                 loop_cfg: LoopConfig, *, shardings: Optional[tuple] = None):
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
@@ -57,6 +59,7 @@ class TrainLoop:
         self.cfg = loop_cfg
         self.ckpt = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep)
         self.device = flatten(params)[1][0].device
+        self.shardings = shardings  # (param_shardings, opt_shardings) or None
         self.step = 0
         self.step_times: list[float] = []
         self._preempted = False
@@ -73,8 +76,11 @@ class TrainLoop:
         latest = self.ckpt.latest_step()
         if latest is None:
             return False
+        shardings = None
+        if self.shardings is not None:
+            shardings = {"params": self.shardings[0], "opt": self.shardings[1]}
         restored, extra = self.ckpt.restore({"params": self.params, "opt": self.opt_state},
-                                            device=self.device)
+                                            device=self.device, shardings=shardings)
         self.params, self.opt_state = restored["params"], restored["opt"]
         self.step = int(extra["step"])
         if hasattr(self.data, "restore_state") and "data" in extra:

@@ -11,6 +11,7 @@ import torch
 from repro.configs import base as jbase
 from repro_torch import convert
 from repro_torch.configs import base as tbase
+from repro_torch.parallel.sharding import no_constrain
 from repro_torch.optim.adam import flatten
 
 
@@ -95,9 +96,9 @@ def routing_of(jm, tm, jp, tp, batch: dict) -> list:
         jrec.append((np.asarray(jmoe._route(params, xt, E, k)[1]), gap))
         return jorig(params, x, cfg, constrain)
 
-    def twrap(params, x, cfg):
+    def twrap(params, x, cfg, constrain=no_constrain):
         trec.append(tmoe._route(params, x.reshape(-1, x.shape[-1]), E, k)[1].numpy())
-        return torig(params, x, cfg)
+        return torig(params, x, cfg, constrain)
 
     jmoe.moe_apply, tmoe.moe_apply = jwrap, twrap
     try:

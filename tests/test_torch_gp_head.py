@@ -68,10 +68,16 @@ def test_head_predict_matches(dtype):
 
 
 def test_head_over_mesh_axes_waits_for_sharding():
+    """Summed over mesh axes, the statistics need the mesh whose groups they
+    are summed over (tests/test_torch_mesh_steps.py runs it on two ranks);
+    with no axes the mesh is not needed."""
     feats, targets, _, tp = _problem("float32")
-    with pytest.raises(NotImplementedError, match="parallel/sharding"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         thead.head_loss(tp, torch.as_tensor(feats), torch.as_tensor(targets),
                         axis_names=("data",))
+    assert torch.equal(thead.head_loss(tp, torch.as_tensor(feats), torch.as_tensor(targets),
+                                       axis_names=(), mesh=None),
+                       thead.head_loss(tp, torch.as_tensor(feats), torch.as_tensor(targets)))
 
 
 def test_gp_head_trains_and_calibrates():

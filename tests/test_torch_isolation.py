@@ -50,6 +50,9 @@ NEW_MODULES = {
     "repro_torch.models.rglru", "repro_torch.models.rwkv6", "repro_torch.models.moe",
     "repro_torch.models.encdec", "repro_torch.models.frontends",
     "repro_torch.optim.compression",
+    # parallel/ and runtime/elastic
+    "repro_torch.parallel", "repro_torch.parallel.sharding",
+    "repro_torch.parallel.collectives", "repro_torch.runtime.elastic",
 }
 
 

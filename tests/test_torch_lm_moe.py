@@ -19,6 +19,7 @@ from _hypothesis_compat import given, settings, st
 
 from _lm_parity import config_pair, to_torch
 from repro.models import moe as jmoe
+from repro_torch.parallel.sharding import no_constrain
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import moe as tmoe
 
@@ -146,9 +147,12 @@ def test_routing_slots_match_reference():
 
 @pytest.mark.parametrize("path", ["moe_apply_ep", "moe_apply_ep_a2a"])
 def test_expert_parallel_paths_wait_for_sharding(path):
+    """The expert-parallel paths run on a device mesh of more than one rank
+    (tests/test_torch_moe_ep.py); off it they refuse, and moe_apply takes
+    the dense path."""
     cfg = get_smoke_config("arctic-480b")
-    with pytest.raises(NotImplementedError, match="parallel/sharding"):
-        getattr(tmoe, path)({}, torch.zeros(1, 2, cfg.d_model), cfg, mesh=None)
+    with pytest.raises(ValueError, match="device mesh of more than one rank"):
+        getattr(tmoe, path)({}, torch.zeros(1, 2, cfg.d_model), cfg, no_constrain)
     # without a mesh, moe_apply is the dense path
     params = tmoe.moe_init(torch.Generator().manual_seed(0), cfg, "cpu")
     x = torch.as_tensor(_x((1, 4, cfg.d_model), 5))
