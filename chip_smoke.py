@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, data-parallel,
 persistence, tuning and analysis paths, the reference's GP-LVM dry run,
-the dense LM (smollm-360m at full width) and every other LM family at full
-width, on one CUDA card.
+the dense LM (smollm-360m at full width), every other LM family at full
+width, the LM over a device mesh and the LM dry run, on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -234,6 +234,24 @@ Phases (any failure exits non-zero and prints no result):
    (2, 2), restored with `runtime.elastic.reshard_for_mesh` on (4, 2),
    saved there and restored on (2, 2), every leaf bitwise. Times are
    gloo-bound and no speed figure. No B1-B7 launch.
+
+21. The LM dry run (`[lm-dryrun]` lines; `launch.dryrun`). On one rank,
+   smollm-360m at full width in bf16, its train step at 8 x 2,048, prefill
+   at 4 x 512 and decode at B = 4 over 576 slots: `StepBundle.lower()`
+   (meta tensors, traced on the host's CPU) predicts the peak, which must
+   lie within 10 % of `max_memory_allocated` over the real step on the
+   card (reset just before it, after one warm-up call; the arguments'
+   blocks counted, nothing else resident), and counts the matrix-product
+   flops, which must equal `FlopCounterMode`'s on the real step; the
+   step's time (median of 3) is printed beside the roofline bound.
+   Meanwhile, on the host's CPU, the dry run's CLI in five child processes
+   started together (the fake process group shares no process with the
+   gloo phases): smollm-360m's train_4k, prefill_32k and decode_32k on
+   the pod mesh, moonshot-v1-16b-a3b's
+   train_4k on the multipod mesh and recurrentgemma-2b's long_500k on the
+   pod mesh, each record status ok, its GiB a chip, dominant term, bound
+   and useful share printed (predictions for an H100 cluster, not
+   measurements). No B1-B7 launch.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -3961,6 +3979,203 @@ def phase_mesh(device: str = "cuda", preset: str = "full", lm_sizes=(MESH_LM_TRA
     return {"lm": lm, "moe": ranks[0]["moe"], "elastic": el[0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the LM dry run (launch/dryrun) against the card
+# ---------------------------------------------------------------------------
+
+# one rank's predictions held to the card at [lm]'s sizes: train batch x
+# sequence, prefill batch x prompt, decode batch x cache slots at a position
+LM_DRYRUN_TRAIN = (8, 2048)
+LM_DRYRUN_PREFILL = (4, 512)
+LM_DRYRUN_DECODE = (4, 576, 512)
+# the dry run's peak against torch.cuda.max_memory_allocated over the step
+LM_DRYRUN_PEAK_TOL = 0.10
+LM_DRYRUN_TIMED = 3  # steps timed after the one the peak is read on
+# production cells (arch, shape, mesh), each traced on rank 0 of a fake 256-
+# or 512-rank group by a run of the dry run's CLI, all five at once
+LM_DRYRUN_CELLS = (("smollm-360m", "train_4k", "pod"), ("smollm-360m", "prefill_32k", "pod"),
+                   ("smollm-360m", "decode_32k", "pod"),
+                   ("moonshot-v1-16b-a3b", "train_4k", "multipod"),
+                   ("recurrentgemma-2b", "long_500k", "pod"))
+LM_DRYRUN_TIMEOUT_S = 300
+
+
+def _lm_dryrun_args(kind: str, cfg, dev):
+    """The step's bundle on the one-rank mesh and real arguments on `dev`
+    (random weights from the seed)."""
+    mesh = lm_mesh.make_host_mesh(dev)
+    model = model_zoo.build(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init(SEED, device=dev)
+    if kind == "train":
+        B, S = LM_DRYRUN_TRAIN
+        cell = ShapeCell("dry", S, B, "train")
+        bundle = lm_steps.make_train_step(cfg, cell, mesh)
+        args = (params, adam_init(params, lm_steps.default_adam(cfg)),
+                model_zoo.make_batch(gen, cfg, cell))
+    elif kind == "prefill":
+        B, S = LM_DRYRUN_PREFILL
+        cell = ShapeCell("dry", S, B, "prefill")
+        bundle = lm_steps.make_prefill_step(cfg, cell, mesh)
+        args = (params, model_zoo.make_batch(gen, cfg, cell))
+    else:
+        B, slots, pos = LM_DRYRUN_DECODE
+        bundle = lm_steps.make_decode_step(cfg, ShapeCell("dry", slots, B, "decode"), mesh)
+        tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, dtype=torch.int32,
+                               device=dev)
+        args = (params, model.init_decode_state(B, slots, device=dev), tokens,
+                torch.tensor(pos, dtype=torch.int32, device=dev))
+    return bundle, args
+
+
+def _alloc_bytes(tree) -> int:
+    """What the CUDA caching allocator holds for the tensors of `tree`: each
+    storage once, in whole 512-byte blocks."""
+    seen = {}
+    for _, t in sharding.leaves_with_path(tree, is_leaf=lambda x: isinstance(x, torch.Tensor)):
+        if not isinstance(t, torch.Tensor):
+            continue
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = -(-st.nbytes() // 512) * 512
+    return sum(seen.values())
+
+
+def lm_dryrun_step(kind: str, cfg, dev, card: str) -> dict:
+    """One rank's dry run of smollm-360m's `kind` step (`StepBundle.lower()`,
+    traced on this host's CPU on meta tensors) against the same step on
+    the card: the predicted peak within LM_DRYRUN_PEAK_TOL of
+    `max_memory_allocated` over the step (reset just before it, the
+    arguments' blocks counted and anything else resident not), the counted
+    matrix-product flops equal to `FlopCounterMode`'s on the real step, and
+    the step's time (median of LM_DRYRUN_TIMED) beside the roofline bound."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    bundle, args = _lm_dryrun_args(kind, cfg, dev)
+    t0 = time.perf_counter()
+    low = bundle.lower()
+    lower_s = time.perf_counter() - t0
+    terms = low.terms()
+    predicted = low.memory["peak_hbm_bytes_est"]
+    fn = bundle.jitted()
+    arg_bytes = _alloc_bytes(args)
+    out = fn(*args)  # the first call: one-time allocations (cuBLAS workspaces)
+    torch.cuda.synchronize()
+    del out
+    resident = torch.cuda.memory_allocated(dev) - arg_bytes  # not the step's
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated(dev) - resident
+    del out
+    times = []
+    for _ in range(LM_DRYRUN_TIMED):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    del out
+    real_mm = int(fc.get_total_flops())
+    counted_mm = int(sum(low.total.matmul_flops.values()))
+    step_ms = statistics.median(times) * 1e3
+    bound_ms_ = terms["step_lower_bound_s"] * 1e3
+    gap = abs(predicted - measured) / measured
+    size = {"train": LM_DRYRUN_TRAIN, "prefill": LM_DRYRUN_PREFILL,
+            "decode": LM_DRYRUN_DECODE[:2]}[kind]
+    gib = {k: v / 2**30 for k, v in low.memory.items()}
+    log(f"[lm-dryrun] {cfg.name} {kind} on one rank ({' x '.join(map(str, size))}, "
+        f"{cfg.param_dtype}): predicted peak {gib['peak_hbm_bytes_est']:.3f} GiB (arguments "
+        f"{gib['argument_bytes']:.3f}, outputs {gib['output_bytes']:.3f}, temporaries "
+        f"{gib['temp_bytes']:.3f}, aliased {gib['alias_bytes']:.3f}; traced in {lower_s:.1f} s), "
+        f"measured {measured / 2**30:.3f} GiB ({predicted} vs {measured} bytes): off by "
+        f"{100 * gap:.2f} % (tol {100 * LM_DRYRUN_PEAK_TOL:g} %); matrix-product flops counted "
+        f"{counted_mm:.6e} vs FlopCounterMode {real_mm:.6e}; step {step_ms:.3f} ms (median of "
+        f"{LM_DRYRUN_TIMED}) vs the roofline bound {bound_ms_:.3f} ms ({terms['dominant']}; "
+        f"compute {terms['t_compute_s'] * 1e3:.3f} ms of which matrix products "
+        f"{terms['t_matmul_s'] * 1e3:.3f}, memory {terms['t_memory_s'] * 1e3:.3f} ms): the step "
+        f"at {100 * bound_ms_ / step_ms:.1f} % of the bound | {card}")
+    check(gap <= LM_DRYRUN_PEAK_TOL,
+          f"[lm-dryrun] {kind} peak predicted {predicted} vs measured {measured} bytes")
+    check(counted_mm == real_mm, f"[lm-dryrun] {kind} matrix-product flops {counted_mm} vs "
+          f"FlopCounterMode {real_mm}")
+    del args, bundle
+    _release(dev)
+    return {"predicted": predicted, "measured": measured, "step_ms": step_ms,
+            "bound_ms": bound_ms_, "matmul_flops": counted_mm}
+
+
+def start_lm_dryrun_cells(out: str) -> list:
+    """`python -m repro_torch.launch.dryrun` for each of LM_DRYRUN_CELLS, a
+    child process each (the fake process group shares no process with the
+    gloo phases), all started at once; they run on the host's CPU while the
+    card is busy with `lm_dryrun_step`."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", sh,
+         "--mesh", mesh, "--force", "--out", out], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, sh, mesh in LM_DRYRUN_CELLS]
+
+
+def finish_lm_dryrun_cells(procs: list, out: str, t0: float, card: str) -> list:
+    """The children's records: each exits 0 with its record status ok; per
+    chip GiB, the dominant term, the bound and the useful share printed."""
+    results = []
+    for proc in procs:
+        try:
+            stdout, err = proc.communicate(timeout=LM_DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, err = proc.communicate()
+        results.append((proc.returncode, stdout, err))
+    for rc, stdout, err in results:
+        for line in stdout.splitlines():
+            log(f"[lm-dryrun] {line}")
+        check(rc == 0, f"[lm-dryrun] dryrun exited {rc}: {err[-3000:]}")
+    log(f"[lm-dryrun] the {len(procs)} dry runs, started together: "
+        f"{time.perf_counter() - t0:.1f} s")
+    recs = []
+    for arch, sh, mesh in LM_DRYRUN_CELLS:
+        rec = json.loads((Path(out) / f"{arch}_{sh}_{mesh}.json").read_text())
+        check(rec["status"] == "ok", f"[lm-dryrun] {arch} x {sh} x {mesh}: {rec}")
+        recs.append(rec)
+        t = rec["roofline"]
+        log(f"[lm-dryrun] {arch} x {sh} x {mesh} ({rec['n_chips']} ranks, rank 0 traced in "
+            f"{rec['lower_s']} s): {rec['memory']['peak_hbm_bytes_est'] / 2**30:.3f} GiB a "
+            f"chip, dominant {t['dominant']}, bound {t['step_lower_bound_s'] * 1e3:.3f} ms "
+            f"(compute {t['t_compute_s'] * 1e3:.3f}, memory {t['t_memory_s'] * 1e3:.3f}, "
+            f"collective {t['t_collective_s'] * 1e3:.3f}), useful "
+            f"{rec['useful_compute_fraction']:.3f} | predicted for an H100 cluster, not "
+            f"measured; {card}")
+    return recs
+
+
+def phase_lm_dryrun(device: str = "cuda") -> dict:
+    """The LM dry run (`launch.dryrun`): the production cells on fake
+    256/512-rank groups, in children on the host's CPU, while smollm-360m's
+    train, prefill and decode steps are predicted on one rank and held to
+    the card (`lm_dryrun_step`). No B1-B7 launch."""
+    dev = torch.device(device)
+    card = card_line()
+    before = counts()
+    cfg = get_config(LM_ARCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = start_lm_dryrun_cells(tmp)
+        try:
+            steps_ = {kind: lm_dryrun_step(kind, cfg, dev, card)
+                      for kind in ("train", "prefill", "decode")}
+        finally:
+            recs = finish_lm_dryrun_cells(procs, tmp, t0, card)
+    check(counts() == before, f"[lm-dryrun] a kernel launched: {counts()} vs {before}")
+    return {"steps": steps_, "cells": recs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -4008,6 +4223,7 @@ def main() -> int:
         phase("lm", phase_lm)
         phase("lm families", phase_lm_families)
         phase("mesh", phase_mesh)
+        phase("lm dry run", phase_lm_dryrun)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

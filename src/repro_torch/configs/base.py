@@ -5,7 +5,7 @@ Every architecture is a `ModelConfig` in its own module
 (`repro_torch/configs/<id>.py`) registered here, selectable with
 ``--arch <id>`` in the launchers. Input-shape cells (train_4k /
 prefill_32k / decode_32k / long_500k) are global and pair with every arch.
-Only the `dense` family runs in the port's models so far.
+Every family runs in the port's models.
 """
 from __future__ import annotations
 

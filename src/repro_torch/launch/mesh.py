@@ -46,6 +46,10 @@ class LocalMesh:
 
 
 def _device_type(device) -> str:
+    """The mesh's device type. Over a fake process group (the LM dry run,
+    `launch.dryrun`) no device is touched, so a CUDA mesh needs no card."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return torch.device(device).type
     return _device.resolve(device).type
 
 

@@ -17,9 +17,24 @@ larger of the two; float64 has no exp unit, so each exp counts as one FP64
 operation. Tensor-core peaks (TF32, BF16) bound only matrix products.
 
 Collective bandwidths are documented assumptions, as the reference states
-its own: NVLink 4 within a node (900 GB/s a GPU, both directions, so
-450 GB/s each way) and 400 Gb/s (50 GB/s) a GPU across nodes; a ring
-all-reduce moves 2 (W - 1) / W of its payload through each rank's link.
+its own: an H100 SXM node holds 8 GPUs joined by NVLink 4 (900 GB/s a GPU,
+both directions, so 450 GB/s each way); across nodes each GPU has 400 Gb/s
+(50 GB/s). Ranks are numbered row-major over the mesh (as `launch.mesh.
+make_mesh` numbers them) and fill nodes in order, so a group whose ranks
+all lie in one node of 8 runs at the NVLink rate and any other group at
+the rate between nodes. Each collective moves, through each rank's link,
+what the reference's ring model says (`ring_traffic`): all-gather
+out (P - 1) / P, reduce-scatter out (P - 1), all-reduce 2 bytes (P - 1) / P,
+all-to-all bytes (P - 1) / P, a permute its bytes.
+
+An LM step's compute term (`lm_roofline_terms`) splits its operations:
+matrix products run on the tensor cores at the product's dtype (bf16 and
+f16 at the dense BF16 peak; float32 at the FP32 SIMT rate, since the
+port leaves TF32 off and `chip_smoke.py` asserts it; float64 on the FP64
+tensor cores), every other operation at the SIMT rate of its dtype
+(float64's FP64 rate; any other dtype's FP32 rate: PyTorch's elementwise
+kernels compute half types in float32). The products and the rest run
+one after another in an eager step, so their times add.
 
 The work counts of the seven kernels (B1-B7) are plain functions of
 (N, M, Q, D, dtype): the least each function must do — every input read
@@ -29,7 +44,8 @@ over a training step.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+import re
+from typing import Callable, Dict, Iterable, NamedTuple
 
 import torch
 
@@ -37,7 +53,9 @@ __all__ = [
     "HBM_BYTES_PER_S", "FP32_PER_S", "FP64_PER_S", "SFU_EXP_PER_S",
     "TF32_TENSOR_PER_S", "BF16_TENSOR_PER_S", "NVLINK_BYTES_PER_S",
     "INTERNODE_BYTES_PER_S", "Work", "KERNEL_WORK", "bound", "roofline_terms",
-    "ring_allreduce_bytes",
+    "ring_allreduce_bytes", "FP64_TENSOR_PER_S", "GPUS_PER_NODE", "matmul_rate",
+    "simt_rate", "link_of", "LINK_BYTES_PER_S", "ring_traffic", "lm_roofline_terms",
+    "count_params", "model_flops",
     "suffstats_work", "suffstats_bwd_work", "psi2_work", "psi2_bwd_work",
     "psi1_work", "psi1_bwd_work", "kfu_work",
     "bound_ms", "bwd_bound_ms", "psi2_bound_ms", "psi2_bwd_bound_ms",
@@ -53,9 +71,12 @@ SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # dense tensor-core peaks (the data sheet's figures with sparsity, halved)
 TF32_TENSOR_PER_S = 494.7e12
 BF16_TENSOR_PER_S = 989.4e12
+FP64_TENSOR_PER_S = 67e12
 # documented assumptions: NVLink 4 within a node, one way; 400 Gb/s across
 NVLINK_BYTES_PER_S = 450e9
 INTERNODE_BYTES_PER_S = 50e9
+GPUS_PER_NODE = 8
+LINK_BYTES_PER_S = {"nvlink": NVLINK_BYTES_PER_S, "network": INTERNODE_BYTES_PER_S}
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -237,3 +258,114 @@ def psi1_bwd_bound_ms(N, M, Q, D, dtype) -> tuple:
 def kfu_bound_ms(N, M, Q, D, dtype) -> tuple:
     """B7's bound."""
     return bound(kfu_work(N, M, Q, D, dtype), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the LM side: a step's roofline terms from its counted operations
+# (`launch.cost.lower`), and the reference's parameter and model-flop counts
+# ---------------------------------------------------------------------------
+
+def matmul_rate(dtype: torch.dtype) -> float:
+    """Peak operations a second of a matrix product in `dtype` (module
+    docstring)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return BF16_TENSOR_PER_S
+    if dtype == torch.float64:
+        return FP64_TENSOR_PER_S
+    return FP32_PER_S
+
+
+def simt_rate(dtype: torch.dtype) -> float:
+    """Peak operations a second of any other operation in `dtype`."""
+    return FP64_PER_S if dtype == torch.float64 else FP32_PER_S
+
+
+def link_of(ranks: Iterable[int]) -> str:
+    """"nvlink" for a group whose ranks all lie in one node of
+    `GPUS_PER_NODE` (ranks fill nodes in order), else "network"."""
+    return "nvlink" if len({r // GPUS_PER_NODE for r in ranks}) <= 1 else "network"
+
+
+def ring_traffic(kind: str, nbytes: float, P: int) -> float:
+    """Bytes a rank moves in one collective of `kind` whose result is
+    `nbytes`, over a group of P ranks (the reference's ring model,
+    `repro.launch.roofline`'s docstring)."""
+    if P <= 1:
+        return 0.0
+    frac = (P - 1) / P
+    if kind == "all-gather":
+        return nbytes * frac
+    if kind == "reduce-scatter":
+        return nbytes * (P - 1)
+    if kind == "all-reduce":
+        return 2 * nbytes * frac
+    if kind == "all-to-all":
+        return nbytes * frac
+    return float(nbytes)  # a permute or a broadcast: its bytes
+
+
+def _dtype(name) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+def lm_roofline_terms(matmul_flops: Dict, other_flops: Dict, nbytes: float,
+                      traffic: Dict[str, float]) -> Dict:
+    """The reference's roofline terms of an LM step (seconds; the keys of
+    `repro.launch.roofline.roofline_terms`) on the H100: `matmul_flops` and
+    `other_flops` map a dtype (or its name) to the operations done in it;
+    `traffic` maps a link ("nvlink" or "network") to the ring bytes a rank
+    moves over it. Adds "t_matmul_s" and "t_other_s", the compute term's
+    two parts."""
+    t_mm = sum(f / matmul_rate(_dtype(d)) for d, f in matmul_flops.items())
+    t_other = sum(f / simt_rate(_dtype(d)) for d, f in other_flops.items())
+    t_compute = t_mm + t_other
+    t_memory = nbytes / HBM_BYTES_PER_S
+    t_coll = sum(b / LINK_BYTES_PER_S[link] for link, b in traffic.items())
+    dominant = max(("compute", t_compute), ("memory", t_memory),
+                   ("collective", t_coll), key=lambda kv: kv[1])[0]
+    lower = max(t_compute, t_memory, t_coll)
+    return {
+        "t_compute_s": t_compute,
+        "t_memory_s": t_memory,
+        "t_collective_s": t_coll,
+        "dominant": dominant,
+        "step_lower_bound_s": lower,
+        "compute_fraction_of_bound": t_compute / lower if lower > 0 else 0.0,
+        "t_matmul_s": t_mm,
+        "t_other_s": t_other,
+    }
+
+
+def count_params(tree) -> int:
+    """Elements of every tensor in `tree` (a parameter tree, on any
+    device: the meta device's stand-ins count the same)."""
+    from repro_torch.parallel.sharding import leaves_with_path
+
+    return int(sum(t.numel() for _, t in leaves_with_path(tree)))
+
+
+def model_flops(cfg, params_tree, n_tokens: int) -> Dict[str, float]:
+    """The reference's MODEL_FLOPS = 6 N D: N the non-embedding parameters
+    (the embedding table and the unembedding left out; a MoE expert weight
+    scaled by top-k over the expert count, the active share), D the tokens
+    processed. Exact, from the parameter tree (paths "/"-joined as the
+    reference joins its keys: "seg0/0/moe/w_gate")."""
+    from repro_torch.parallel.sharding import leaves_with_path
+
+    total = 0.0
+    active = 0.0
+    moe_scale = (cfg.num_experts_per_tok / cfg.num_experts) if cfg.num_experts else 1.0
+    for p, leaf in leaves_with_path(params_tree):
+        n = float(leaf.numel())
+        if "embed/table" in p or "unembed" in p:
+            continue  # embedding lookups are not matmul FLOPs
+        total += n
+        if re.search(r"moe/w_(gate|up|down)", p):
+            active += n * moe_scale
+        else:
+            active += n
+    return {
+        "n_params_nonembed": total,
+        "n_params_active": active,
+        "model_flops": 6.0 * active * n_tokens,
+    }

@@ -8,7 +8,8 @@ rules table gives them on the mesh (`parallel.sharding`). `jitted()` is
 the counterpart of the reference's `jax.jit(fn, in_shardings=...,
 out_shardings=...)`: it places the arguments, runs the step eagerly and
 places the outputs. On a one-rank mesh every sharding is replicated and
-the step runs on plain tensors.
+the step runs on plain tensors. `lower()` traces the step on abstract
+arguments for the LM dry run (`launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -53,9 +54,17 @@ class StepBundle:
 
         return call
 
-    def lower(self):
-        raise NotImplementedError("lowering an LM step for its cost and memory waits for "
-                                  "launch/dryrun")
+    def lower(self, *, multiply: bool = True):
+        """The counterpart of the reference's `jit(...).lower(...)`: the
+        step traced on one rank's abstract arguments (meta-device shards
+        placed by in_shardings on the bundle's mesh, no storage), its
+        operations, bytes and collectives counted and its live bytes
+        tracked (`launch.cost.lower`; each layer loop's repeat traced once
+        and counted its trip count times unless `multiply` is False). The
+        record's `lower_s` is the trace's seconds; `compile_s` is None."""
+        from repro_torch.launch import cost
+
+        return cost.lower(self, multiply=multiply)
 
 
 def _abstract_params(model) -> Tree:

@@ -404,6 +404,10 @@ def _decode_sharded(q, k_new, v_new, cur, cache: KVCache, cfg: ModelConfig, wind
     lc = _LocalCache(cache)
     mesh, slot_dims = lc.mesh, lc.slot_dims
     q, k_new, v_new = lc.local(q), lc.local(k_new), lc.local(v_new)
+    # the position as a plain tensor (a replicated DTensor holds it whole):
+    # the in-place writes below go into plain local shards, and DTensor has
+    # no rule for an in-place op on a plain tensor with a DTensor index
+    cur = shd.local(cur)
     B = q.shape[0]
     k_loc, v_loc, p_loc = lc.k, lc.v, lc.pos
     slots, n_loc, first = lc.slots, lc.n_loc, lc.first
@@ -483,8 +487,13 @@ def _fill_sharded(cache: KVCache, k, v, positions) -> None:
     else:
         slot = positions.long() % lc.slots
     rel = slot - lc.first
-    b, i = torch.nonzero((rel >= 0) & (rel < lc.n_loc), as_tuple=True)
-    r = rel[b, i]
-    lc.k[b, r] = k[b, i].to(lc.k.dtype)
-    lc.v[b, r] = v[b, i].to(lc.v.dtype)
-    lc.pos[b, r] = positions[b, i].to(torch.int32)
+    # a masked write of static shape: every entry is written, the ones whose
+    # slot another rank owns into one spare slot past this rank's, dropped
+    # after (no data-dependent index list, so the write traces on fake
+    # tensors too)
+    r = torch.where((rel >= 0) & (rel < lc.n_loc), rel, lc.n_loc)
+    b = torch.arange(B, device=r.device)[:, None].expand(B, n)
+    for buf, new in ((lc.k, k), (lc.v, v), (lc.pos, positions)):
+        ext = torch.cat([buf, buf[:, :1]], dim=1)
+        ext[b, r] = new.to(buf.dtype)
+        buf.copy_(ext[:, :lc.n_loc])

@@ -27,8 +27,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_rope, chunked_softmax_xent, dt,
-                                       embed_init, embed_lookup, logits_from,
-                                       mlp_apply, mlp_init, rmsnorm,
+                                       embed_init, embed_lookup, layer_loop,
+                                       logits_from, mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
 from repro_torch.models.transformer import Tree, _resolve, _stack, _unstack
 from repro_torch.parallel import sharding as shd
@@ -84,8 +84,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, constrain=no_constrai
     kv_map = attn.head_to_kv_map(cfg, tp)
     layers = _unstack(params["enc_layers"], cfg.encoder_layers)
 
-    def body(xc, i):
-        layer = layers[i]
+    def body(xc, i, layer):
         h = rmsnorm(layer["ln1"], xc, cfg.norm_eps)
         q, k, v = attn._qkv(layer["attn"], h, positions, cfg, tp, constrain)
         out = attn.blockwise_attention(q, k, v, positions, positions, window=-1,
@@ -98,8 +97,10 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, constrain=no_constrai
         return constrain(xc, "act_embed")
 
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.encoder_layers):
-        x = checkpoint(body, x, i, use_reentrant=False) if remat else body(x, i)
+    x = layer_loop(
+        lambda xc, i, layer: (checkpoint(body, xc, i, layer, use_reentrant=False) if remat
+                              else body(xc, i, layer)),
+        x, cfg.encoder_layers, lambda i: layers[i])
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -114,8 +115,10 @@ def _cross_kv(layer, enc_out: torch.Tensor, enc_pos: torch.Tensor, cfg: ModelCon
     cdt = dt(cfg, "compute")
     B, F_, _ = enc_out.shape
     hd = cfg.resolved_head_dim()
-    k = (enc_out.to(cdt) @ layer["xattn"]["wk"].to(cdt)).reshape(B, F_, cfg.num_kv_heads, hd)
-    v = (enc_out.to(cdt) @ layer["xattn"]["wv"].to(cdt)).reshape(B, F_, cfg.num_kv_heads, hd)
+    # split_last: on a mesh whose model axis does not divide the kv heads the
+    # (Kv * hd) dim is gathered before it is split (whisper's 12 over 16)
+    k = shd.split_last(enc_out.to(cdt) @ layer["xattn"]["wk"].to(cdt), (cfg.num_kv_heads, hd))
+    v = shd.split_last(enc_out.to(cdt) @ layer["xattn"]["wv"].to(cdt), (cfg.num_kv_heads, hd))
     return apply_rope(k, enc_pos, cfg.rope_theta), v
 
 
@@ -132,8 +135,8 @@ def _decoder(params, x, positions, enc_out, enc_pos, cfg: ModelConfig, *,
     layers = _unstack(params["dec_layers"], cfg.num_layers)
     xmode = "train" if (mode == "train" and states is None) else "infer"
 
-    def body(xc, i):
-        layer = layers[i]
+    def body(xc, i, ops):
+        layer, enc = ops
         kv = None if states is None else attn.KVCache(
             states.self_kv.k[i], states.self_kv.v[i], states.self_kv.pos[i])
         # self attention
@@ -159,7 +162,7 @@ def _decoder(params, x, positions, enc_out, enc_pos, cfg: ModelConfig, *,
             q = shd.pad(q, (0, 0, 0, Hp - H))
         q = constrain(apply_rope(q, positions, cfg.rope_theta), "act_heads")
         if mode == "train":
-            kx, vx = _cross_kv(layer, enc_out, enc_pos, cfg)
+            kx, vx = _cross_kv(layer, enc, enc_pos, cfg)
             if states is not None:
                 states.cross_k[i].copy_(kx)
                 states.cross_v[i].copy_(vx)
@@ -177,8 +180,11 @@ def _decoder(params, x, positions, enc_out, enc_pos, cfg: ModelConfig, *,
         return constrain(xc, "act_embed")
 
     remat = cfg.remat and mode == "train" and states is None and torch.is_grad_enabled()
-    for i in range(cfg.num_layers):
-        x = checkpoint(body, x, i, use_reentrant=False) if remat else body(x, i)
+    # the encodings are each repeat's operand too: every layer reads them
+    x = layer_loop(
+        lambda xc, i, ops: (checkpoint(body, xc, i, ops, use_reentrant=False) if remat
+                            else body(xc, i, ops)),
+        x, cfg.num_layers, lambda i: (layers[i], enc_out))
     return rmsnorm(params["dec_norm"], x, cfg.norm_eps), states
 
 

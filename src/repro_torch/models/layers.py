@@ -22,6 +22,27 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
+# the runner of the models' layer loops while `launch.cost` counts a step
+# (it traces two repeats and stands in for the rest); empty otherwise
+LAYER_LOOP: list = []
+
+
+def layer_loop(step, carry, n: int, operands=lambda r: None):
+    """carry = step(carry, r, operands(r)) for r = 0 .. n - 1: a model's
+    loop over its stacked layers (the reference's scan over layers).
+    `operands(r)` gives what repeat r reads besides the carry (its slices
+    of the stacked parameters: dicts and lists of tensors), and the step
+    reads them from its third argument. Every repeat after the first does
+    the same work on tensors of the same shapes and layouts, so a counting
+    runner (`launch.cost.lower`) traces the first and the last, counts the
+    last n - 1 times, and stands in for the others."""
+    if LAYER_LOOP:
+        return LAYER_LOOP[-1](step, carry, n, operands)
+    for r in range(n):
+        carry = step(carry, r, operands(r))
+    return carry
+
+
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
@@ -142,6 +163,44 @@ def logits_from(params_embed, params_unembed, x: torch.Tensor,
     return logits
 
 
+def _gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[b, s, labels[b, s]] as (B, c, 1). On a DTensor: each rank
+    picks from its own slice of the vocab (a masked sum over it, zero where
+    the label lies in another rank's slice), and the result is a partial
+    sum over the mesh dims that split the vocab, as GSPMD partitions the
+    reference's take_along_axis. DTensor's own gather gives the same values,
+    but its reverse (`gather_backward`: `new_zeros` of the logits' shape,
+    then a scatter) makes the chunk's whole logits gradient on every rank,
+    since DTensor places a `new_zeros` replicated: (B, c, V) at the global
+    batch and the whole vocab, 24 GiB a rank at smollm-360m's train_4k on
+    the (16, 16) mesh (`launch.dryrun`). Here the reverse stays on the
+    rank's slice."""
+    if not shd.is_dtensor(logits):
+        return torch.gather(logits, -1, labels[..., None].long())
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    pl = list(logits.placements)
+    vocab_dims = [i for i, p in enumerate(pl) if p.is_shard(last)]
+    rows = [p if p.is_shard() and p.dim < last else Replicate() for p in pl]
+    out = [Partial() if i in vocab_dims else rows[i] for i in range(len(pl))]
+
+    def local(lg, lb):
+        first = 0  # the first vocab id of this rank's slice
+        for i in vocab_dims:
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        V = lg.shape[-1]
+        hit = (lb.long()[..., None] - first * V) == torch.arange(V, device=lg.device)
+        return torch.where(hit, lg, torch.zeros((), dtype=lg.dtype, device=lg.device)).sum(
+            -1, keepdim=True)
+
+    fn = local_map(local, out_placements=out, in_placements=(pl, rows),
+                   in_grad_placements=(pl, rows), device_mesh=mesh, redistribute_inputs=True)
+    return fn(logits, shd.replicate(labels, mesh))
+
+
 def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor, loss_mask: torch.Tensor,
                          params_embed, params_unembed, cfg: ModelConfig,
                          constrain=no_constrain) -> torch.Tensor:
@@ -166,11 +225,7 @@ def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor, loss_mask: torch
         logits = logits_from(params_embed, params_unembed, xc, cfg)  # (B, c, V)
         logits = constrain(logits.float(), "logits")
         lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-        # (B, c, 1) throughout: a gather along a vocab-sharded dim is a
-        # masked partial sum in DTensor, and its mask keeps the gather's
-        # shape (dropping the last dim before the reduction breaks it)
-        gold = torch.gather(logits, -1, lc[..., None].long())
-        return torch.sum((lse - gold) * mc[..., None])
+        return torch.sum((lse - _gold_logit(logits, lc)) * mc[..., None])
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -120,7 +120,10 @@ def _route(params, xt: torch.Tensor, E: int, k: int) -> tuple:
     top_p, top_e = _top_k(probs, k)  # (T, k)
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
     me = torch.mean(probs, dim=0)
-    ce = torch.bincount(top_e[:, 0], minlength=E).float() / T
+    # bincount as a scatter-add: the counts' shape is static (E), so the
+    # routing traces on fake tensors too
+    counts = torch.zeros(E, dtype=torch.int64, device=top_e.device)
+    ce = counts.scatter_add_(0, top_e[:, 0], torch.ones_like(top_e[:, 0])).float() / T
     aux = E * torch.sum(me * ce)
     return top_p, top_e, aux
 

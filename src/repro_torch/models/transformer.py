@@ -42,8 +42,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (chunked_softmax_xent, dt, embed_init,
-                                       embed_lookup, logits_from, mlp_apply,
-                                       mlp_init, rmsnorm, rmsnorm_init,
+                                       embed_lookup, layer_loop, logits_from,
+                                       mlp_apply, mlp_init, rmsnorm, rmsnorm_init,
                                        unembed_init)
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import no_constrain
@@ -267,13 +267,13 @@ def _backbone(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: Model
         per_pos = [_unstack(p, seg.repeat) for p in params[f"seg{si}"]]  # [j][r]
         seg_state = states[f"seg{si}"] if states is not None else None
 
-        def body(xc, r, _seg=seg, _per_pos=per_pos, _seg_state=seg_state):
+        def body(xc, r, p, _seg=seg, _seg_state=seg_state):
             aux_r = torch.zeros((), dtype=torch.float32, device=xc.device)
             for j in range(len(_seg.windows)):
                 st = None
                 if _seg_state is not None:  # repeat r's slice of the stacked state
                     st = _state_map(lambda t: t[r], _seg_state[j])
-                xc, new_st, aux = _layer_apply(_per_pos[j][r], xc, positions, cfg,
+                xc, new_st, aux = _layer_apply(p[j], xc, positions, cfg,
                                                mixer=_seg.mixers[j], window=_seg.windows[j],
                                                mode=mode, state=st, cur_pos=cur_pos,
                                                constrain=constrain)
@@ -283,15 +283,20 @@ def _backbone(params: Tree, x: torch.Tensor, positions: torch.Tensor, cfg: Model
             return xc, aux_r
 
         remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
-        for r in range(seg.repeat):
+
+        def step(carry, r, p, _body=body, _remat=remat):
             # the reference's optimization_barrier (which keeps XLA from
             # widening the saved residual) has no eager counterpart: eager
             # autograd saves each layer's input in its own dtype
-            if remat:
-                x, aux = checkpoint(body, x, r, use_reentrant=False)
+            xc, aux_acc = carry
+            if _remat:
+                xc, aux = checkpoint(_body, xc, r, p, use_reentrant=False)
             else:
-                x, aux = body(x, r)
-            aux_total = aux_total + aux
+                xc, aux = _body(xc, r, p)
+            return xc, aux_acc + aux
+
+        x, aux_total = layer_loop(step, (x, aux_total), seg.repeat,
+                                  lambda r, _per_pos=per_pos: [pj[r] for pj in _per_pos])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, states, aux_total
 

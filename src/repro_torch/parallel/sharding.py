@@ -451,13 +451,49 @@ def init_states(make: Callable[[Any], Tree], device, mesh) -> Tree:
     if not is_distributed(mesh):
         return make(device)
     from torch.distributed import tensor as dtensor
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():  # shapes only, no work of the step: an op counter's
+        described = make("meta")  # mode (`launch.cost`) must not take it for allocations
 
     def leaf(path, t):
         spec = _rules_spec(STATE_RULES, path, tuple(t.shape), mesh)
-        return dtensor.full(tuple(t.shape), -1 if re.search(r"kv/pos$", path) else 0,
-                            dtype=t.dtype, device_mesh=mesh, placements=placements(spec, mesh))
+        fill = -1 if re.search(r"kv/pos$", path) else 0
+        pl = placements(spec, mesh)
+        if torch.device(device).type == "meta":  # a dry run: the shard alone, no storage
+            return meta_shard(tuple(t.shape), t.dtype, mesh, pl, fill)
+        return dtensor.full(tuple(t.shape), fill, dtype=t.dtype, device_mesh=mesh,
+                            placements=pl)
 
-    return map_with_path(leaf, make("meta"))
+    return map_with_path(leaf, described)
+
+
+def local_shape(shape: Tuple[int, ...], pls: tuple, mesh) -> Tuple[int, ...]:
+    """A rank's shard shape of a tensor of `shape` placed by `pls` on
+    `mesh` (the rules table shards only dims the mesh axes divide)."""
+    out = list(shape)
+    for i, p in enumerate(pls):
+        if p.is_shard():
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def meta_shard(shape: Tuple[int, ...], dtype: torch.dtype, mesh, pls: tuple, fill=None):
+    """A DTensor of global `shape` placed by `pls` whose local shard is a
+    meta tensor of the shard's own shape (filled with `fill` where given):
+    what a dry run traces with. Nothing of the global size is made, not
+    even on the meta device, so a storage's size is a shard's."""
+    from torch.distributed.tensor import DTensor
+
+    shard = local_shape(shape, pls, mesh)
+    t = (torch.empty(shard, dtype=dtype, device="meta") if fill is None
+         else torch.full(shard, fill, dtype=dtype, device="meta"))
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.append(n)
+        n *= d
+    return DTensor.from_local(t, mesh, pls, run_check=False, shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
 
 
 def place_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
