@@ -1,0 +1,339 @@
+"""One run of one cell: set-up, the measured window, the traced reading and
+the check against the reference.
+
+A cell is an entry of `BENCHMARK.json`'s `workloads`. Everything that
+belongs to it is found by name: its configuration (`configs/<config>.json`:
+shapes, dtype, backend, the program's environment), its traffic mix
+(`traffic/<traffic>.json`: which loop drives the window and its
+parameters), the limits of its check (`limits/<cell>.json`) and one reader
+per per-layer quantity (`metrics/<the metric's name before its first
+dot>.py`: `stats_fwd_roofline.build` is read by
+`metrics/stats_fwd_roofline.py`). This module is the one general driver of
+every mix:
+
+  * "train": a closed loop of full-batch Adam steps. Set-up draws the
+    problem from the seed and takes the first `check_steps` steps through
+    the very step the window then repeats; those steps are what the check
+    compares with the reference.
+  * "build": a closed loop of rebuilds of the served state from all
+    points; the check compares a build drawn from the seed and the last.
+
+The window issues work until `seconds` have passed on the host clock, then
+waits for the device; its length runs to the end of that wait, and a rate
+is the window over the work it completed. A traced run measures such a
+window untraced first, and then a second one, of at most TRACE_SECONDS,
+under the profiler: the per-layer metrics take the time of a step or build
+from the first, which the profiler's host work does not slow, and only
+device times from the trace.
+"""
+from __future__ import annotations
+
+import gc
+import importlib.util
+import json
+import time
+from pathlib import Path
+from typing import Callable, Dict, List, NamedTuple, Optional
+
+import torch
+from torch.profiler import record_function
+
+from gpbench import check, problem, program, trace
+from gpbench.reference import gplvm as reference
+
+ROOT = Path(__file__).resolve().parents[1]
+HERE = Path(__file__).resolve().parent
+# the traced per-op time agrees with the kernels timed alone within this
+AGREE = 0.15
+TIMED_LAUNCHES = 5
+# the traced window's length at most: its per-call device times are steady
+# well within it, and reading a longer trace only lengthens the run
+TRACE_SECONDS = 10.0
+# an end-to-end metric is read by the part of its name before the first
+# dot: the set-up seconds, the window's memory peak, or the window over the
+# items it completed, by traffic kind ("train_step_ms.paper" is a step time)
+PER_ITEM = {"train": "train_step_ms", "build": "state_build_ms"}
+
+
+class Cell(NamedTuple):
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    limits: Dict[str, float]
+    end_to_end: List[dict]  # the cell's end-to-end metrics
+    per_layer: List[dict]  # the cell's per-layer metrics
+
+
+def _json(path: Path) -> dict:
+    return json.loads(path.read_text())
+
+
+def _reports(metric: dict, cell: str, e2e: List[str]) -> bool:
+    """A per-layer metric with `workloads` is read in those cells; one
+    without, in every cell that reports the end-to-end metric it moves."""
+    if "workloads" in metric:
+        return cell in metric["workloads"]
+    return metric["moves"] in e2e
+
+
+def load_cell(name: str, bench: Optional[dict] = None, here: Path = HERE) -> Cell:
+    bench = bench if bench is not None else _json(ROOT / "BENCHMARK.json")
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if name not in cells:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json; have {sorted(cells)}")
+    w = cells[name]
+    config = _json(here / "configs" / f"{w['config']}.json")
+    e2e = [m for m in bench["end_to_end"]
+           if "workloads" not in m or name in m["workloads"]]
+    names = [m["name"] for m in e2e]
+    per_layer = [m for m in bench["per_layer"] if _reports(m, name, names)]
+    return Cell(name, w["chips"], config, _json(here / "traffic" / f"{w['traffic']}.json"),
+                _json(here / "limits" / f"{name}.json"), e2e, per_layer)
+
+
+def program_env(cell: Cell, root: Path = ROOT) -> Dict[str, str]:
+    """The configuration's environment for the program; a value of a key
+    ending in `_DIR` or `_CACHE` is a path inside the checkout."""
+    return {k: str(root / v) if k.endswith(("_DIR", "_CACHE")) else v
+            for k, v in cell.config.get("env", {}).items()}
+
+
+def reader_path(name: str, here: Path = HERE) -> Path:
+    """The reader of the part of the metric's name before its first dot."""
+    return here / "metrics" / f"{name.split('.')[0]}.py"
+
+
+def load_reader(metric: dict, here: Path = HERE):
+    """The metric's reader module, whose `read(reading)` gives its value or
+    None; its unit, layer and what it moves are BENCHMARK.json's."""
+    path = reader_path(metric["name"], here)
+    spec = importlib.util.spec_from_file_location(f"gpbench_metric_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class Reading(NamedTuple):
+    """What a per-layer reader reads: the traced window, the work it
+    completed, the time of a step or build in the untraced window before
+    it, the cell's shapes, and which ops' attributed times agreed with
+    their kernels timed alone."""
+    traced: trace.Traced
+    done: int  # steps or builds in the traced window
+    item_s: float  # seconds a step or build, untraced
+    shape: dict
+    validated: Dict[str, bool]
+
+    def op_seconds(self, op: str) -> Optional[float]:
+        """Device seconds a call of `op`, where the trace saw and could
+        attribute it; None otherwise."""
+        n = self.traced.op_calls.get(op, 0)
+        if n == 0 or not self.validated.get(op) or self.traced.op_device_s[op] <= 0:
+            return None
+        return self.traced.op_device_s[op] / n
+
+    def per_item_s(self) -> float:
+        """Seconds a step or build, from the untraced window."""
+        return self.item_s
+
+    def busy_per_item_s(self) -> float:
+        """Device-busy seconds a step or build, from the trace."""
+        return self.traced.busy_s / self.done
+
+    def shapes(self):
+        s = self.shape
+        return s["N"], s["M"], s["Q"], s["D"], s["dtype"]
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _window(issue: Callable[[], torch.Tensor], seconds: float, dev) -> tuple:
+    """(items issued, items whose output held a value that is not finite,
+    seconds): issue work until `seconds` have passed, then wait for the
+    device. The outputs are tallied on the device, so neither the host's
+    pace nor the memory peak depends on how many items the window holds."""
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    done = 0
+    t0 = time.perf_counter()
+    with record_function(trace.WINDOW_SPAN):
+        while True:
+            bad += (~torch.isfinite(issue())).any()
+            done += 1
+            if time.perf_counter() - t0 >= seconds:
+                break
+        _sync(dev)
+    return done, int(bad), time.perf_counter() - t0
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def _free(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _time_alone(fn, args) -> float:
+    """Seconds a launch of `fn(*args)`, over TIMED_LAUNCHES back to back
+    between CUDA events, after one untimed."""
+    fn(*args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_LAUNCHES):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3 / TIMED_LAUNCHES
+
+
+def _validate(traced: trace.Traced, params, Y, ops: tuple, dev, log) -> Dict[str, bool]:
+    """Each op's traced device time a call against its kernels timed alone
+    at the same inputs; agreement within AGREE validates the op."""
+    kernels = program.kernels_alone()
+    out = {}
+    if kernels is None or dev.type != "cuda":
+        log("trace check: the kernels cannot be timed alone here; attributed times not used")
+        return {op: False for op in ops}
+    M, D = params["Z"].shape[0], Y.shape[1]
+    with torch.no_grad():
+        args = (params["q_mu"], torch.exp(params["q_logS"]), Y, params["Z"],
+                torch.exp(params["kern"]["log_variance"]),
+                torch.exp(params["kern"]["log_lengthscale"]))
+        cot = (torch.full((M, M), 1e-3, device=dev, dtype=Y.dtype),
+               torch.full((M, D), 1e-3, device=dev, dtype=Y.dtype))
+        calls = {program.STATS_FWD_OP: (kernels[0], args),
+                 program.STATS_BWD_OP: (kernels[1], (*args, *cot))}
+        alone = {op: _time_alone(*calls[op]) for op in ops}
+    for op in ops:
+        n = traced.op_calls.get(op, 0)
+        seen = traced.op_device_s[op] / n if n else 0.0
+        ok = seen > 0 and abs(seen - alone[op]) <= AGREE * alone[op]
+        out[op] = ok
+        log(f"trace check: {op} {n} calls, traced {seen * 1e3:.4f} ms a call, "
+            f"alone {alone[op] * 1e3:.4f} ms a launch: {'agree' if ok else 'DISAGREE'}"
+            f" (events named {traced.op_names.get(op)})")
+    return out
+
+
+def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: float,
+        log: Callable[[str], None] = print, shape_override: Optional[dict] = None,
+        plant: Optional[Callable] = None, numbers_out: Optional[dict] = None) -> dict:
+    """The result of one run (the benchmark's last line as a dict), with
+    `checks` holding each compared number beside its limit.
+
+    `shape_override` replaces the configuration's shapes, `plant` wraps
+    the program (a planted fault) and `numbers_out` receives every number
+    the check computed, compared or not; the benchmark's own runs use
+    none of them."""
+    dev = torch.device(device)
+    shape = dict(cell.config, **(shape_override or {}))
+    tr = cell.traffic
+    prog = program.GPLVM(shape, lr=tr.get("lr", 1e-2))
+    if plant is not None:
+        prog = plant(prog)
+    params, Y = problem.draw(shape, seed, dev, tr.get("perturb"))
+    kind = tr["kind"]
+    if kind == "train":
+        opt = prog.adam_init(params)
+        losses, m1 = [], None
+        for k in range(tr["check_steps"]):
+            params, opt, loss = prog.train_step(params, opt, Y)
+            losses.append(loss)
+            if k == 0:
+                m1 = _host(opt.m)
+        checked = {"losses": [float(x) for x in losses], "m1": m1, "params": _host(params)}
+        state = {"params": params, "opt": opt}
+
+        def issue():
+            state["params"], state["opt"], value = prog.train_step(state["params"], state["opt"], Y)
+            return value
+    elif kind == "build":
+        for _ in range(tr["warm_builds"]):
+            prog.build(params, Y)
+        kept, state = {}, {"n": 0}
+        pick = seed % tr["check_pick"]
+
+        def issue():
+            s = prog.build(params, Y)
+            if state["n"] == pick:
+                kept["picked"] = s
+            kept["last"] = s
+            state["n"] += 1
+            return s.Kuu_inv_mean
+    else:
+        raise ValueError(f"traffic kind {kind!r}: the driver knows 'train' and 'build'")
+    _sync(dev)
+    peak_setup = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup_s = time.perf_counter() - t_start
+    ops = (program.STATS_FWD_OP,) + ((program.STATS_BWD_OP,) if kind == "train" else ())
+    done, failed, window_s = _window(issue, seconds, dev)
+    if traced:
+        item_s = window_s / done
+        with trace.profiling() as holder:
+            issue()  # the profiler's first activity, outside the window
+            _sync(dev)
+            done_t, failed_t, _ = _window(issue, min(seconds, TRACE_SECONDS), dev)
+        done, failed = done + done_t, failed + failed_t
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
+                   "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+                   "count": 1, "memory_peak_bytes": max(peak_setup, peak)}
+    metrics, breakdown = {}, None
+    if traced:
+        t0 = time.perf_counter()
+        t = trace.summarize(holder[0], ops)
+        holder.clear()
+        log(f"trace: {t.window_s:.3f} s window read in {time.perf_counter() - t0:.1f} s; "
+            f"{1e3 * item_s:.4f} ms an item untraced, {1e3 * t.window_s / done_t:.4f} traced, "
+            f"{1e3 * t.busy_s / done_t:.4f} busy")
+        cur = state["params"] if kind == "train" else params
+        validated = _validate(t, cur, Y, ops, dev, log)
+        reading = Reading(t, done_t, item_s, shape, validated)
+        for m in cell.per_layer:
+            value = load_reader(m).read(reading)
+            if value is not None:
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+        device_info.update(busy_s=t.busy_s, window_s=t.window_s)
+        breakdown = {"device_ops": t.device_ops, "idle_gaps": t.idle_gaps}
+    else:
+        per = {"setup_s": setup_s, "peak_mem_gib": peak / 2**30,
+               PER_ITEM[kind]: 1e3 * window_s / done}
+        for m in cell.end_to_end:
+            value = per.get(m["name"].split(".")[0])
+            if value is not None:
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    # the check: the program's state is freed, then the reference runs
+    del issue, state, params, Y
+    if kind == "train":
+        del opt
+    _free(dev)
+    t_ref = time.perf_counter()
+    detail = {} if numbers_out is not None else None
+    params0, Y0 = problem.draw(shape, seed, dev, tr.get("perturb"))
+    num = reference.Numerics.of("float64", problem.DTYPES[shape["dtype"]])
+    if kind == "train":
+        ref = reference.train(params0, Y0, tr["check_steps"], tr.get("lr", 1e-2), num)
+        numbers = check.train_numbers(checked, ref, params0, detail)
+    else:
+        ref = reference.build(params0, Y0, num)
+        numbers = check.merge([check.build_numbers(s, ref) for s in kept.values()])
+    log(f"reference: {time.perf_counter() - t_ref:.1f} s")
+    if numbers_out is not None:
+        numbers_out.update(numbers, detail=detail)
+    ok, shown = check.verdict(numbers, cell.limits)
+    result = {"correct": bool(ok and failed == 0), "attempted": done, "failed": failed,
+              "metrics": metrics, "device": device_info}
+    if breakdown is not None:
+        result["breakdown"] = breakdown
+    result["checks"] = shown
+    return result
