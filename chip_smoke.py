@@ -166,14 +166,13 @@ Phases (any failure exits non-zero and prints no result):
    build through "pallas" and "fused",
    predict p50 at B = 1 and B = 256, and the median training-step time
    after the first step for every model and dtype (the two-rank step is
-   printed by phase 8), with one profiled step each: device time by
-   kernel and the device's idle share.
+   printed by phase 8).
 
 18. The dense LM at smollm-360m's full width (`[lm]` lines; 361,821,120
    bf16 parameters from seed 0, no weights fetched): served through
    `launch.serve` at B = 4, a 512-token prompt and 64 greedy tokens
    (finite logits, padded ids below -1e29, two runs' tokens equal; prefill
-   ms, decode tok/s, peak GiB; one decode step profiled); in float32, the
+   ms, decode tok/s, peak GiB); in float32, the
    decode after a 127-token prefill against the 128-token forward (the
    reference's 1e-3 max(scale, 1)) and, at B = 2, S = 256 with TF32 off,
    the loss and every gradient leaf against the same model in float64
@@ -182,8 +181,8 @@ Phases (any failure exits non-zero and prints no result):
    loss within 0.1 of `expected_first_loss`, the last below the first;
    step ms, tokens/s, peak GiB), a fresh loop resumed from the checkpoint
    at step 5 with its data position and bitwise-equal parameters and
-   moments, its steps 6-8 held to the uninterrupted run's (LM_RESUME_TOL),
-   one step profiled; the GP head (`core.gp_head`) fitted 50 Adam steps to
+   moments, its steps 6-8 held to the uninterrupted run's (LM_RESUME_TOL);
+   the GP head (`core.gp_head`) fitted 50 Adam steps to
    256 mean-pooled final features (Q = 960, M = 256): its loss falls and
    its variance is larger 20 away from the data. The LM launches none of
    B1-B7.
@@ -1910,7 +1909,6 @@ def phase_temporal() -> dict:
           f"temporal fit: losses {h}")
     check(peak <= bound, f"temporal fit peak memory {peak} > {bound}")
     times = {"fit_s": fit_s, "peak_bytes": peak, "step_ms": step_ms(model)}
-    profile_step(model, f"temporal Matern32 step at N={TEMPORAL_N}", top=10)
     # the scan's first level: N/2 batched (d, d) solves and products
     rng = np.random.default_rng(SEED + 3)
     A2, B2 = (torch.as_tensor(rng.normal(size=(TEMPORAL_N // 2, d, d)) + 3.0 * np.eye(d),
@@ -2605,49 +2603,6 @@ def step_ms(model) -> float:
     return statistics.median(times[1:])
 
 
-def profile_step(model, what: str, top: int = 6) -> None:
-    """One training step (after an untimed one) under `torch.profiler`:
-    the device time of each kernel name (the `top` largest), their sum
-    against the step's wall time (host clock to a synchronize, inflated by
-    the profiler's own host work), and so the device's idle share."""
-    config = AdamConfig(lr=1e-2, clip_norm=None, weight_decay=0.0)
-    params, state = model.params, adam_init(model.params, config)
-
-    def step():
-        _, grads = inference.value_and_grad(model._loss, params, model._data)
-        adam_update(grads, state, params, config)
-
-    profile_fn(step, what, top)
-
-
-def profile_fn(step, what: str, top: int = 6, tag: str = "[profile]") -> None:
-    """`step()` once untimed, then once under `torch.profiler`: each
-    kernel name's device time (the `top` largest), their sum against the
-    wall time (host clock to a synchronize, inflated by the profiler's own
-    host work), and so the device's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    if not by_name:
-        log(f"{tag} {what}: the profiler recorded no device time; not measured")
-        return
-    log(f"{tag} {what}: device busy {busy:.3f} ms of a {wall:.3f} ms profiled step "
-        f"({len(by_name)} kernel names; idle share {100 * (1 - busy / wall):.1f} %)")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        log(f"{tag}   {ms:8.3f} ms  {name[:110]}")
-
-
 def cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
     """Median over `reps` CUDA-event pairs, each around `inner` calls back to
     back, of the time a call; after warm-up. With inner > 1 the wrapper's
@@ -2826,7 +2781,6 @@ def phase_times(trained: dict, pallas: dict, sgpr: dict, data: dict) -> dict:
         for key, model in models.items():
             log(f"[time] training step {name} {key} (N={N}, M={M}): "
                 f"{step_ms(model):.3f} ms median of {TIMED_STEPS - 1} after the first")
-            profile_step(model, f"training step {name} {key}")
     set_counts(saved)  # timing launches are not a main path's
     return out
 
@@ -2945,13 +2899,6 @@ def lm_serve_part(cfg, preset: str, params, dev, sizes) -> dict:
     check(tuple(r.tokens.shape) == (B, new) and int(r.tokens.max()) < V,
           f"[lm] serve: tokens {tuple(r.tokens.shape)}")
     check(torch.equal(r.tokens, cold.tokens), "[lm] serve: two greedy runs disagree")
-    if dev.type == "cuda":
-        model = model_zoo.build(cfg)
-        with torch.no_grad():
-            _, states = model.prefill(params, {"tokens": r.tokens}, total_slots=new + 2)
-            profile_fn(lambda: model.decode_step(params, r.tokens[:, -1:], new, states),
-                       f"decode step B={B}", top=5, tag="[lm] profile")
-        del states
     log(f"[lm] serve {cfg.name} ({sum(t.numel() for t in flatten(params)[1]):,} parameters, "
         f"{cfg.param_dtype}): B={B} x {S} prompt + {new} new tokens greedy; prefill "
         f"{r.prefill_s * 1e3:.1f} ms ({r.prefill_tok_s:.0f} tok/s; cold {cold.prefill_s * 1e3:.1f} "
@@ -3114,10 +3061,6 @@ def lm_train_part(cfg, preset: str, dev, sizes, ckpt_root: str) -> dict:
         f"{after == want})")
     check(len(after) == total - first and max(errs) <= LM_RESUME_TOL,
           f"[lm] resumed losses {after} vs uninterrupted {want}")
-    if dev.type == "cuda":
-        batch = loop.data.batch0
-        profile_fn(lambda: s.bundle.fn(loop.params, loop.opt_state, batch),
-                   f"train step B={B} S={S}", top=8, tag="[lm] profile")
     return {"step_ms": step_ms, "tokens_s": B * S / step_ms * 1e3, "peak_gib": peak,
             "params": loop.params}
 

@@ -20,6 +20,7 @@ import torch
 from repro_torch.core import psi_stats, svgp
 from repro_torch.gp.kernels import Kernel, default_rbf
 from repro_torch.gp.stats import ExpectedBatch, suff_stats
+from repro_torch.tracing import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,10 +77,11 @@ def local_stats(params: Params, Y_local: torch.Tensor, *,
     "fused" or "pallas" (the psi1 and psi2 ops); `bwd_backend` picks the
     ops' reverse passes."""
     kern = default_rbf(kernel, params["q_mu"].shape[1])
-    S = torch.exp(params["q_logS"])
-    return suff_stats(kern, params["kern"],
-                      ExpectedBatch(params["q_mu"], S, Y_local, params["Z"]),
-                      backend=backend, chunk=chunk, bwd_backend=bwd_backend)
+    with span("repro_torch.stats"):
+        S = torch.exp(params["q_logS"])
+        return suff_stats(kern, params["kern"],
+                          ExpectedBatch(params["q_mu"], S, Y_local, params["Z"]),
+                          backend=backend, chunk=chunk, bwd_backend=bwd_backend)
 
 
 def bound(params: Params, Y: torch.Tensor, *, kernel: Optional[Kernel] = None,
@@ -98,9 +100,10 @@ def bound_from_stats(
 ) -> torch.Tensor:
     """The O(M^3) epilogue of the bound, from the statistics."""
     kern = default_rbf(kernel, params["Z"].shape[1])
-    Kuu = kern.K(params["kern"], params["Z"])
-    beta = torch.exp(params["log_beta"])
-    terms = svgp.collapsed_bound(Kuu, stats, beta, D)
+    with span("repro_torch.epilogue"):
+        Kuu = kern.K(params["kern"], params["Z"])
+        beta = torch.exp(params["log_beta"])
+        terms = svgp.collapsed_bound(Kuu, stats, beta, D)
     return terms.bound - kl
 
 

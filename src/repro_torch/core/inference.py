@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.optim import AdamConfig, adam_init, adam_update
 from repro_torch.optim.adam import flatten, tree_map, unflatten
+from repro_torch.tracing import span
 
 Tree = Any
 
@@ -27,10 +28,12 @@ def value_and_grad(loss_fn: Callable[..., torch.Tensor], params: Tree,
     """loss_fn(params, *data) and its gradient tree (zeros where the loss
     does not depend on a leaf, as `jax.grad` gives)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss = loss_fn(leaves, *data)
+    with span("repro_torch.forward"):
+        loss = loss_fn(leaves, *data)
     flat = flatten(leaves)[1]
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    with span("repro_torch.backward"):
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
     return loss.detach(), unflatten(leaves, grads)
 
 

@@ -25,6 +25,8 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.tracing import traced
+
 Tree = Any  # a tensor, or a dict, tuple or list of trees
 
 _STATE_DTYPES = {"float32": torch.float32, "float64": torch.float64,
@@ -108,6 +110,7 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 @torch.no_grad()
+@traced("repro_torch.adam")
 def adam_update(grads: Tree, state: AdamState, params: Tree,
                 config: AdamConfig) -> tuple[Tree, AdamState, torch.Tensor]:
     """Returns (new_params, new_state, pre-clip grad norm)."""

@@ -25,6 +25,7 @@ from repro_torch.core import svgp
 from repro_torch.core.psi_stats import SuffStats
 from repro_torch.gp.kernels import Kernel
 from repro_torch.temporal.model import TemporalState, _tree_nbytes, forecast
+from repro_torch.tracing import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -63,10 +64,11 @@ def build_state(kernel: Kernel, params: Params, stats: SuffStats, *,
     device the tensors live on. `params` needs "kern", "Z", "log_beta";
     extra keys (the GP-LVM's q(X)) are ignored."""
     kern_p, Z, log_beta = params["kern"], params["Z"], params["log_beta"]
-    beta = torch.exp(log_beta)
-    factors = svgp.posterior_factors(kernel.K(kern_p, Z), stats, beta,
-                                     jitter=jitter)
-    post = svgp.optimal_qu(factors, beta)
+    with span("repro_torch.epilogue"):
+        beta = torch.exp(log_beta)
+        factors = svgp.posterior_factors(kernel.K(kern_p, Z), stats, beta,
+                                         jitter=jitter)
+        post = svgp.optimal_qu(factors, beta)
     return PosteriorState(kern=kern_p, Z=Z, log_beta=log_beta, stats=stats,
                           L=post.L, LA=post.LA, Kuu_inv_mean=post.Kuu_inv_mean)
 
