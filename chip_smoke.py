@@ -2627,8 +2627,8 @@ def exp_slots(lib: str, N: int, M: int, Q: int, D: int, dtype) -> str:
     (B1-B4) on this card at this shape, from the wrappers' own pair and
     split helpers, beside the M (M + 1) / 2 psi2 pairs (and M psi1 columns)
     the statistics need. The psi1 side: B1's psiY blocks evaluate whole
-    32-row tiles per 8-column d tile; B2's point pass evaluates M and its dZ
-    pass whole 32-row tiles."""
+    32-row tiles per 8-column d tile; B2's point pass evaluates M (dZ's
+    psi1 part included)."""
     geo, sms = ss.card_geometry(lib, torch.empty(1, Q, device="cuda", dtype=dtype))
     if lib in ("suffstats_bwd", "psi2_bwd"):  # the reverse passes split each chunk
         P = ss.bwd_pair_split(N, M, geo, sms).count
@@ -2638,7 +2638,7 @@ def exp_slots(lib: str, N: int, M: int, Q: int, D: int, dtype) -> str:
     rows = sum(ss.evaluated_rows(hi - lo, P, geo.run, geo.group) for lo, hi in chunks)
     psi2 = ss.evaluated_slots(M, geo.pairs_per_block) * rows / N
     psi1 = {"suffstats_fwd": -(-M // ss.Y_TILE_M) * ss.Y_TILE_M * -(-D // ss.Y_TILE_D),
-            "suffstats_bwd": M + -(-M // ss.Z_TILE_M) * ss.Z_TILE_M}.get(lib, 0)
+            "suffstats_bwd": M}.get(lib, 0)
     blocks = ss.pair_blocks(M, geo.pairs_per_block)
     return (f"[slots] {lib} {str(dtype)[6:]} N={N} M={M} Q={Q} D={D}: {psi2:.1f} psi2 "
             f"exponentials a point for the {ss.pair_count(M)} pairs it needs "

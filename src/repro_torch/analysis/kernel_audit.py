@@ -128,6 +128,12 @@ class KernelAudit:
         return self.smem_bytes <= self.smem_budget_bytes
 
 
+# resident B2 point-pass blocks a multiprocessor, as the library's occupancy
+# query reported them on an H100: (float64, compile-time Q or 0) -> blocks
+POINT_RESIDENT = {(False, 1): 2, (False, 2): 3, (False, 3): 3, (False, 4): 2, (False, 0): 2,
+                  (True, 1): 2, (True, 2): 2, (True, 3): 1, (True, 4): 1, (True, 0): 1}
+
+
 class StandInCard:
     """What `tune.search.Card` reports, for a host with no card: an H100's
     132 multiprocessors; the psi2 passes' pairs a block, staged run and
@@ -136,7 +142,8 @@ class StandInCard:
     the resident blocks a multiprocessor the libraries' occupancy queries
     reported on an H100 at the paper's shape (the psi2 forward 5 / 4 in
     float32 / float64, the reverse pair pass 3 / 2, psi1 6, K_fu 8 / 6,
-    the psi1 reverse 2 / 1; `chip_smoke.py`'s `[slots]` lines)."""
+    the psi1 reverse 2 / 1; `chip_smoke.py`'s `[slots]` lines; B2's point
+    pass POINT_RESIDENT)."""
     sms = 132
 
     def psi2_geometry(self, lib: str, dtype: torch.dtype, Q: int) -> ss.Geometry:
@@ -155,6 +162,9 @@ class StandInCard:
     def psi1_bwd_resident(self, dtype: torch.dtype, M: int, Q: int,
                           plan: ss.Psi1BwdPlan) -> int:
         return 1 if dtype == torch.float64 else 2
+
+    def point_resident(self, dtype: torch.dtype, Q: int) -> int:
+        return POINT_RESIDENT[dtype == torch.float64, Q if Q <= 4 else 0]
 
 
 def _card(card):
@@ -233,7 +243,11 @@ def kernel_plan(name: str, problem: Problem, dtype, card) -> Plan:
         passes.append(Pass("pair", (blocks, counts[0]), T))
         if lib in ("suffstats_bwd", "psi2_bwd"):
             covers.append(("points of the point pass", _tiles(N, ss.BWD_THREADS), N))
-            passes.append(Pass("point", (-(-N // ss.BWD_THREADS),), ss.BWD_THREADS))
+            blocks = -(-N // ss.BWD_THREADS)
+            if lib == "suffstats_bwd":  # a wave of blocks walks each chunk's tiles
+                blocks = ss.point_blocks(N, M, geo.pairs_per_block,
+                                         card.point_resident(dtype, Q), card.sms)
+            passes.append(Pass("point", (blocks,), ss.BWD_THREADS))
             # the pair pass splits each chunk; one chunk's per-point sums
             # `pt` (the running pair sums between chunks are in the launch
             # plan's scratch)
@@ -248,9 +262,6 @@ def kernel_plan(name: str, problem: Problem, dtype, card) -> Plan:
             covers.append(("outputs of the psiY tiles", _tiles(D, ss.Y_TILE_D), D))
             passes.append(Pass("psiY", (-(-M // ss.Y_TILE_M), -(-D // ss.Y_TILE_D),
                                         counts[1]), T))
-        if lib == "suffstats_bwd":
-            covers.append(("inducing points of the dZ tiles", _tiles(M, ss.Z_TILE_M), M))
-            passes.append(Pass("dZ", (-(-M // ss.Z_TILE_M), counts[1]), T))
         smem = ss.kernel_smem(lib, Q, size)
     elif lib == "psi1_bwd":
         plan = ss.psi1_bwd_plan(M, Q, size)

@@ -16,7 +16,12 @@
 //       point of the chunk);
 //   point pass, one thread per datapoint of the chunk: sums a point's
 //     pair-block partials in a fixed order, and forms dmu, dS (and dY with
-//     the psi1 branch) and block partials of dl and v dv.
+//     the psi1 branch) and block partials of dl and v dv. With the psi1
+//     branch (B2) it also sums dZ's psi1 part by column from the W1 it
+//     forms (dz_columns): a warp's lanes by halving steps, the block's warps
+//     in warp order, then in double into the running totals of the block,
+//     one of a wave of blocks that walk the chunk's 256-point tiles, so the
+//     scratch holds one (M, Q) row pair a block whatever N is.
 //
 // The caller runs the two passes chunk by chunk over N (run_chunks), so the
 // per-point scratch holds one chunk's (pair blocks, 1 + 3Q, chunk) sums; with
@@ -573,32 +578,83 @@ __device__ __forceinline__ void block_sum(T* s_red, T val, T* out, int k) {
   __syncthreads();
 }
 
-// QC > 0: Q is the compile-time QC, the point's terms in registers and
-// its moments summed in one pass. QC == 0: Q read at run time, the moments
-// summed kMaxQ q's a pass over the point's own terms (the psi1 branch's
-// exponentials evaluated again each pass, dY and s1 in the first), the
-// point's mu and b for every q in shared memory ([Q][kThreads] each, psi1
-// branch only).
-// kPsi1: with the psi1/psiY branch (the fused reverse pass); without it
-// (the psi2-only reverse pass) Y, gyv and dY are not touched and D is unused.
+// B2's dZ column sums (the psi1 part of dZ, eq. (12)): inducing points a
+// warp reduces together, so that a lane's terms of the group, G x QB, take
+// at most 64 bytes of registers (16 floats or 8 doubles); a power of two.
+// 128 bytes cost the double instances a resident block a multiprocessor
+// (170 registers at Q = 1) and ran B2 4 % slower at the paper's shape
+template <typename T, int QB>
+__host__ __device__ constexpr int dz_group() {
+  int g = 32;
+  while (g > 1 && g * QB * static_cast<int>(sizeof(T)) > 64) g /= 2;
+  return g;
+}
+
+// Group k's column terms v[g][qq] (inducing point m0 + g, latent q0 + qq) of
+// the block's 256 points, summed in a fixed order: over each warp's lanes
+// in the input dtype (warp_reduce_points: lane l then holds the point
+// group l >> (5 - log2 G)), then the 8 warp totals in warp order by warp
+// k % 8, which adds each to the block's running total of its column in
+// double (acc and its compensation term err, (M, Q) each). s_wz holds two
+// groups' warp totals, so one barrier a group suffices; k counts the
+// block's groups. init: the block's first tile, whose totals start the
+// running ones.
+template <typename T, int G, int QB>
+__device__ __forceinline__ void dz_columns(T (&v)[G][QB], T* s_wz, int k, double* acc,
+                                           double* err, int m0, int q0, int M, int Q,
+                                           bool init) {
+  constexpr int L = 5 - log2_of(G);  // lanes that end with one group's totals
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  warp_reduce_points(v, lane);
+  T* buf = s_wz + (k & 1) * kBlockWarps * G * QB;  // [kBlockWarps][G][QB]
+  if ((lane & ((1 << L) - 1)) == 0) {
+#pragma unroll
+    for (int qq = 0; qq < QB; ++qq) buf[(warp * G + (lane >> L)) * QB + qq] = v[0][qq];
+  }
+  __syncthreads();
+  if (warp == k % kBlockWarps && lane < G * QB) {
+    T s = buf[lane];
+#pragma unroll
+    for (int w = 1; w < kBlockWarps; ++w) s += buf[w * G * QB + lane];
+    const int m = m0 + lane / QB, q = q0 + lane % QB;
+    if (m < M && q < Q) {
+      const size_t i = static_cast<size_t>(m) * Q + q;
+      double a = 0.0, c = 0.0;
+      if (!init) a = acc[i], c = err[i];
+      add_to_total<T>(a, c, static_cast<double>(s));
+      acc[i] = a;
+      err[i] = c;
+    }
+  }
+}
+
+// One 256-point tile of the point pass (datapoints tile * kThreads + tid of
+// the chunk). QC > 0: Q is the compile-time QC, the point's terms in
+// registers and its moments summed in one pass. QC == 0: Q read at run
+// time, the moments summed kMaxQ q's a pass over the point's own terms (the
+// psi1 branch's exponentials evaluated again each pass, dY and s1 in the
+// first), the point's mu and b for every q in shared memory (s_pm, s_pb:
+// [Q][kThreads] each, psi1 branch only).
+// kPsi1: with the psi1/psiY branch (the fused reverse pass), whose sweep
+// over m that forms W1 also sums dZ's psi1 part by column (dz_columns: s_wz,
+// the group count zk, the block's running totals dz_acc, dz_err and init);
+// without it (the psi2-only reverse pass) Y, gyv, dY and those are not
+// touched and D is unused.
 // pt: the pair pass's (NPB, 1 + 3Q, N) per-point sums of the chunk.
-// part: (gridDim.x, Q + 1) block partials of [dl_point (Q), dv_raw].
+// part: the chunk's (tiles, Q + 1) block partials of [dl_point (Q), dv_raw].
 template <typename T, int QC, bool kPsi1>
-__global__ void __launch_bounds__(kThreads)
-point_kernel(const T* __restrict__ mu, const T* __restrict__ S,
-             const T* __restrict__ Y, const T* __restrict__ Z,
-             const T* __restrict__ l2, const T* __restrict__ ls,
-             const T* __restrict__ gyv, const T* __restrict__ pt,
-             T* __restrict__ dmu, T* __restrict__ dS, T* __restrict__ dY,
-             T* __restrict__ part, int N, int M, int Q, int D, int NPB) {
+__device__ __forceinline__ void point_tile(
+    int tile, const T* __restrict__ mu, const T* __restrict__ S, const T* __restrict__ Y,
+    const T* __restrict__ Z, const T* __restrict__ l2, const T* __restrict__ ls,
+    const T* __restrict__ gyv, const T* __restrict__ pt, T* __restrict__ dmu,
+    T* __restrict__ dS, T* __restrict__ dY, T* __restrict__ part, T* s_red, T* s_pm, T* s_pb,
+    T* s_wz, int& zk, double* dz_acc, double* dz_err, bool init, int N, int M, int Q, int D,
+    int NPB) {
   constexpr int QB = QC > 0 ? QC : kMaxQ;  // q's a pass
   const int Qn = QC > 0 ? QC : Q;
-  __shared__ T s_red[kThreads];
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_pm = reinterpret_cast<T*>(smem_raw);  // QC == 0 and kPsi1: [Q][kThreads]
-  T* s_pb = s_pm + static_cast<size_t>(Qn) * kThreads;
   const int tid = threadIdx.x;
-  const int n = blockIdx.x * kThreads + tid;
+  const int n = tile * kThreads + tid;
   const bool live = n < N;
   const size_t nn = static_cast<size_t>(live ? n : N - 1);  // dead threads read a real point
   const T w = live ? T(1) : T(0);
@@ -628,7 +684,7 @@ point_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   // and cancel across pairs, and a point's rounding then stays that point's
   const int C = 1 + 3 * Qn;
   const T* src = pt + nn;
-  T* out = part + static_cast<size_t>(blockIdx.x) * (Qn + 1);
+  T* out = part + static_cast<size_t>(tile) * (Qn + 1);
   const T t = point_sum(src, NPB, C, N, 0);
   T s1 = T(0);
 #pragma unroll
@@ -638,43 +694,67 @@ point_kernel(const T* __restrict__ mu, const T* __restrict__ S,
 #pragma unroll
     for (int qq = 0; qq < QB; ++qq) s1d[qq] = s1v[qq] = T(0);
     if constexpr (kPsi1) {
+      constexpr int G = dz_group<T, QB>();
       const T* y = Y + nn * D;
+      const int Dy = live ? D : 0;  // a dead thread's W1 is 0: no dZ term
+      // the point's first kDChunk outputs in registers, read once a pass
+      T yv[kDChunk];
+#pragma unroll
+      for (int j = 0; j < kDChunk; ++j) yv[j] = j < Dy ? y[j] : T(0);
       // dY in the first pass, kDChunk columns a sweep over m; later passes
-      // sweep once for the moments
+      // sweep once for the moments. The sweep that forms W1 (d0 == 0) also
+      // sums the dZ terms W1 b (mu - z_m) of G inducing points at a time
       for (int d0 = 0; d0 < (q0 == 0 ? D : 1); d0 += kDChunk) {
         T dy[kDChunk];
 #pragma unroll
         for (int j = 0; j < kDChunk; ++j) dy[j] = T(0);
-        for (int m = 0; m < M; ++m) {
-          const T* zm = Z + static_cast<size_t>(m) * Qn;
-          T e = lg1;
+        for (int m0 = 0; m0 < M; m0 += G) {
+          T v[G][QB];
 #pragma unroll
-          for (int q = 0; q < Qn; ++q) {
-            const T dq = point_term<QC>(m_, s_pm, q) - __ldg(zm + q);
-            e -= T(0.5) * dq * dq * point_term<QC>(b_, s_pb, q);
-          }
-          const T blk = exp_t(e);
-          const T* g = gyv + static_cast<size_t>(m) * D;
-          if (d0 == 0) {
-            T yg = T(0);
-            for (int d = 0; d < D; ++d) yg += y[d] * __ldg(g + d);
-            const T w1 = yg * blk;
-            if (q0 == 0) s1 += w1;
+          for (int g = 0; g < G; ++g) {
+            const int m = m0 + g;
 #pragma unroll
-            for (int qq = 0; qq < QB; ++qq) {
-              const int q = q0 + qq;
-              if (q < Qn) {
+            for (int qq = 0; qq < QB; ++qq) v[g][qq] = T(0);
+            if (m < M) {  // warp-uniform
+              const T* zm = Z + static_cast<size_t>(m) * Qn;
+              T e = lg1;
+#pragma unroll
+              for (int q = 0; q < Qn; ++q) {
                 const T dq = point_term<QC>(m_, s_pm, q) - __ldg(zm + q);
-                s1d[qq] += w1 * dq;
-                s1v[qq] += w1 * dq * dq;
+                e -= T(0.5) * dq * dq * point_term<QC>(b_, s_pb, q);
+              }
+              const T blk = exp_t(e);
+              const T* gm = gyv + static_cast<size_t>(m) * D;
+              T gv[kDChunk];  // the sweep's columns of gyv_m
+#pragma unroll
+              for (int j = 0; j < kDChunk; ++j) gv[j] = d0 + j < D ? __ldg(gm + d0 + j) : T(0);
+              if (d0 == 0) {
+                T yg = T(0);
+#pragma unroll
+                for (int j = 0; j < kDChunk; ++j)
+                  if (j < Dy) yg += yv[j] * gv[j];
+                for (int d = kDChunk; d < Dy; ++d) yg += y[d] * __ldg(gm + d);
+                const T w1 = yg * blk;
+                if (q0 == 0) s1 += w1;
+#pragma unroll
+                for (int qq = 0; qq < QB; ++qq) {
+                  const int q = q0 + qq;
+                  if (q < Qn) {
+                    const T dq = point_term<QC>(m_, s_pm, q) - __ldg(zm + q);
+                    s1d[qq] += w1 * dq;
+                    s1v[qq] += w1 * dq * dq;
+                    v[g][qq] = w1 * point_term<QC>(b_, s_pb, q) * dq;
+                  }
+                }
+              }
+              if (q0 == 0) {
+#pragma unroll
+                for (int j = 0; j < kDChunk; ++j)
+                  if (d0 + j < D) dy[j] += blk * gv[j];
               }
             }
           }
-          if (q0 == 0) {
-#pragma unroll
-            for (int j = 0; j < kDChunk; ++j)
-              if (d0 + j < D) dy[j] += blk * __ldg(g + d0 + j);
-          }
+          if (d0 == 0) dz_columns<T, G, QB>(v, s_wz, zk++, dz_acc, dz_err, m0, q0, M, Qn, init);
         }
         if (live && q0 == 0) {
 #pragma unroll
@@ -714,10 +794,51 @@ point_kernel(const T* __restrict__ mu, const T* __restrict__ S,
   block_sum(s_red, w * (s1 + T(2) * t), out, Qn);  // eq. (13) + (19), times v
 }
 
+// The point pass over one chunk of N points (every per-point pointer starts
+// at the chunk). Without the psi1 branch: one block a 256-point tile. With
+// it (B2): gridDim.x blocks, block b taking the tiles b, b + gridDim.x, ...
+// in turn, so that its dZ column sums run over all of them (and over every
+// chunk) into its own rows of dz, (2, gridDim.x, M, Q) doubles: the running
+// totals and their compensation terms. dz_in: an earlier chunk started
+// them; otherwise the block's first tile does (every block has one: the
+// grid is at most the first chunk's tiles).
+template <typename T, int QC, bool kPsi1>
+__global__ void __launch_bounds__(kThreads)
+point_kernel(const T* __restrict__ mu, const T* __restrict__ S,
+             const T* __restrict__ Y, const T* __restrict__ Z,
+             const T* __restrict__ l2, const T* __restrict__ ls,
+             const T* __restrict__ gyv, const T* __restrict__ pt,
+             T* __restrict__ dmu, T* __restrict__ dS, T* __restrict__ dY,
+             T* __restrict__ part, double* __restrict__ dz, int N, int M, int Q, int D,
+             int NPB, int dz_in) {
+  constexpr int QB = QC > 0 ? QC : kMaxQ;
+  const int Qn = QC > 0 ? QC : Q;
+  __shared__ T s_red[kThreads];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_pm = reinterpret_cast<T*>(smem_raw);  // QC == 0 and kPsi1: [Q][kThreads]
+  T* s_pb = s_pm + static_cast<size_t>(Qn) * kThreads;
+  if constexpr (kPsi1) {
+    __shared__ T s_wz[2 * kBlockWarps * dz_group<T, QB>() * QB];
+    const size_t plane = static_cast<size_t>(gridDim.x) * M * Qn;
+    double* acc = dz + static_cast<size_t>(blockIdx.x) * M * Qn;
+    int zk = 0;
+    const int tiles = (N + kThreads - 1) / kThreads;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      point_tile<T, QC, true>(tile, mu, S, Y, Z, l2, ls, gyv, pt, dmu, dS, dY, part, s_red,
+                              s_pm, s_pb, s_wz, zk, acc, acc + plane,
+                              !dz_in && tile == static_cast<int>(blockIdx.x), N, M, Q, D, NPB);
+  } else {
+    int zk = 0;
+    point_tile<T, QC, false>(blockIdx.x, mu, S, Y, Z, l2, ls, gyv, pt, dmu, dS, dY, part,
+                             s_red, s_pm, s_pb, nullptr, zk, nullptr, nullptr, false, N, M,
+                             Q, D, NPB);
+  }
+}
+
 template <typename T, bool kPsi1>
 using PointKernel = void (*)(const T*, const T*, const T*, const T*, const T*,
-                             const T*, const T*, const T*, T*, T*, T*, T*, int, int,
-                             int, int, int);
+                             const T*, const T*, const T*, T*, T*, T*, T*, double*, int,
+                             int, int, int, int, int);
 
 template <typename T, bool kPsi1>
 PointKernel<T, kPsi1> point_kernel_for(int Q) {
@@ -737,20 +858,21 @@ size_t point_smem_bytes(int Q) {
   return compile_q(Q) == 0 && kPsi1 ? 2 * sizeof(T) * static_cast<size_t>(Q) * kThreads : 0;
 }
 
-// the point pass over NB = ceil(N / kThreads) blocks of one chunk of N
-// points (every per-point pointer starts at the chunk), reading the pair
-// pass's per-point sums pt
+// the point pass over one chunk of N points (every per-point pointer starts
+// at the chunk), reading the pair pass's per-point sums pt: NB blocks, one a
+// 256-point tile, or with the psi1 branch NB blocks that walk the chunk's
+// tiles (point_kernel) and sum dZ's psi1 part into dz
 template <typename T, bool kPsi1>
 cudaError_t point_pass(int NB, cudaStream_t stream, const T* mu, const T* S,
                        const T* Y, const T* Z, const T* l2, const T* ls,
                        const T* gyv, const T* pt, T* dmu, T* dS, T* dY, T* part,
-                       int N, int M, int Q, int D) {
+                       double* dz, int dz_in, int N, int M, int Q, int D) {
   const PointKernel<T, kPsi1> fn = point_kernel_for<T, kPsi1>(Q);
   const size_t smem = point_smem_bytes<T, kPsi1>(Q);
   const cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return err;
-  fn<<<NB, kThreads, smem, stream>>>(mu, S, Y, Z, l2, ls, gyv, pt, dmu, dS, dY, part, N, M,
-                                  Q, D, pair_blocks(M, Q));
+  fn<<<NB, kThreads, smem, stream>>>(mu, S, Y, Z, l2, ls, gyv, pt, dmu, dS, dY, part, dz, N,
+                                     M, Q, D, pair_blocks(M, Q), dz_in);
   return cudaGetLastError();
 }
 
@@ -760,12 +882,18 @@ cudaError_t point_pass(int NB, cudaStream_t stream, const T* mu, const T* S,
 // psi1 branch. part: (ceil(N / kThreads), Q + 1), a chunk's blocks at its
 // first point's block. The P splits' pair sums carry across chunks in carry
 // ((2, P, Q + 1, M (M + 1) / 2) doubles; unused when one chunk covers N).
+// With the psi1 branch, W point-pass blocks (1 <= W <= the first chunk's
+// tiles) carry their dZ column sums across chunks in dz ((2, W, M, Q)
+// doubles).
 template <typename T, bool kPsi1>
 cudaError_t run_chunks(int P, int CN, cudaStream_t stream, const T* mu, const T* S,
                        const T* Y, const T* Z, const T* l2, const T* ls, const T* Gw,
                        const T* gyv, T* pair_part, double* carry, T* pt, T* dmu, T* dS,
-                       T* dY, T* part, int N, int M, int Q, int D) {
+                       T* dY, T* part, int N, int M, int Q, int D, double* dz = nullptr,
+                       int W = 0) {
   if (CN < 1 || (CN < N && CN % kThreads != 0)) return cudaErrorInvalidValue;
+  if (kPsi1 && (W < 1 || W > (min(CN, N) + kThreads - 1) / kThreads))
+    return cudaErrorInvalidValue;
   for (int c0 = 0; c0 < N; c0 += CN) {
     const int n = min(CN, N - c0);
     const size_t rq = static_cast<size_t>(c0) * Q;
@@ -773,11 +901,11 @@ cudaError_t run_chunks(int P, int CN, cudaStream_t stream, const T* mu, const T*
                                    pt, n, M, Q, c0 > 0, c0 + n < N);
     if (err != cudaSuccess) return err;
     const size_t rd = static_cast<size_t>(c0) * D;
-    err = point_pass<T, kPsi1>((n + kThreads - 1) / kThreads, stream, mu + rq, S + rq,
-                               kPsi1 ? Y + rd : nullptr, Z, l2, ls, gyv, pt, dmu + rq,
-                               dS + rq, kPsi1 ? dY + rd : nullptr,
-                               part + static_cast<size_t>(c0 / kThreads) * (Q + 1), n, M,
-                               Q, D);
+    err = point_pass<T, kPsi1>(kPsi1 ? W : (n + kThreads - 1) / kThreads, stream, mu + rq,
+                               S + rq, kPsi1 ? Y + rd : nullptr, Z, l2, ls, gyv, pt,
+                               dmu + rq, dS + rq, kPsi1 ? dY + rd : nullptr,
+                               part + static_cast<size_t>(c0 / kThreads) * (Q + 1), dz,
+                               c0 > 0, n, M, Q, D);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

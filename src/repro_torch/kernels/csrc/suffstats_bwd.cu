@@ -29,7 +29,7 @@
 //     dY_n = sum_m K_nm gyv_m
 //     dl (eq. (14), (20), its zterm part from tz) and dv_raw = s1 + 2 t,
 //     summed over the points
-//   dZ pass, per m (eq. (12)):
+//     and, from the same W1_m, the psi1 part of dZ (eq. (12)) by column:
 //     dz1_mq = sum_n W1_nm b_nq (mu_nq - z_mq)
 //
 // and the caller's O(M^2 Q) epilogue turns P and A into the psi2 part of dZ
@@ -60,6 +60,31 @@
 //     double in pair-block order, runs the psi1 branch (N M exponentials,
 //     accurate expf) and forms the per-point cotangents and block partials
 //     of dl and v dv.
+//   * dZ's psi1 part is summed by the point pass from the W1 it forms, so
+//     each K_nm of the reverse pass is evaluated once (an m-parallel pass of
+//     its own would evaluate every K_nm again and read mu, S and Y once per
+//     tile of Z's rows). The point pass's sweep over m takes
+//     G inducing points at a time (reverse.cuh: dz_group, G x Q terms a
+//     lane in at most 64 bytes of registers: G = 16 at Q = 1 in float, 8
+//     in double) and sums their terms W1 b (mu - z) over the block's 256
+//     points in a fixed order: across a warp's lanes by the halving steps of
+//     warp_reduce_points (about one shuffle a point, column and q), then
+//     the 8 warp totals in warp order through shared memory, by warp k % 8
+//     for the block's k-th group, in the input dtype. That warp adds each
+//     column's total, in double (compensated in the double instance), to
+//     the block's running total in its own rows of the scratch dz, (2, W,
+//     M, Q) doubles. The W point-pass blocks are one wave of the card's
+//     resident blocks (suffstats_bwd_point_occupancy; no more than a
+//     chunk's 256-point tiles); block b takes the tiles b, b + W, ... of
+//     every chunk in turn, so its rows carry over all its points and the
+//     scratch is W M Q totals whatever N is (a row per tile over all of N
+//     would be N / 256 rows: 33.5 MB at 2^24 points). A last kernel sums
+//     the W rows in block order, compensated. The order is fixed by the
+//     shapes and the occupancy query; there are no atomics. Run-time Q:
+//     the column sums follow the point pass's passes of kMaxQ q's. The
+//     point's first 8 outputs y_n stay in registers over the sweep (they
+//     were read again for every m), and gyv_m is read once for both W1 and
+//     dY.
 //   * Base-2 exponentials with log2(e) folded into the staged terms, as the
 //     forward: MUFU.EX2 in float, common.cuh: exp2_neg in double. A is summed
 //     as sum E r' (mu - zbar) and divided once, in double, by the same
@@ -103,149 +128,55 @@
 //   * float and double instances compute in the input dtype; Q = 1..4 is a
 //     compile-time constant (registers), and any larger Q runs the run-time-Q
 //     instances (reverse.cuh), which sum the moments a chunk of q's a pass
-//     and so evaluate the exponentials once a pass, as dz1_partial_kernel
-//     does at every Q.
+//     and so evaluate the exponentials once a pass.
 #include "reverse.cuh"
 
 namespace {
 
-// dZ pass: kZTileM inducing points x kZLanes point lanes per block
-constexpr int kZTileM = 32;
-constexpr int kZLanes = kThreads / kZTileM;
-constexpr int kZStage = 64;
-
-// ---------------------------------------------------------------------------
-// dZ pass: the psi1 branch of dZ (eq. (12)), m-parallel over an N-split
-// ---------------------------------------------------------------------------
-
-// part: (P, M, Q). The sums of kMaxQ q's a pass over the split, the pass's
-// z in registers. kWide (Q > kMaxQ): a pass for each kMaxQ q's, each
-// evaluating the exponentials again (the other q's z read through L1); the
-// one-pass instance (q0 = 0) has no other q's. Both held to the resident
-// blocks ptxas gave the one-pass kernel on its own (float 3, double 2 a
-// multiprocessor): left free, it takes more registers and fewer blocks,
-// and runs slower.
-template <typename T, bool kWide>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
-dz1_partial_kernel(const T* __restrict__ mu, const T* __restrict__ S,
-                   const T* __restrict__ Y, const T* __restrict__ Z,
-                   const T* __restrict__ l2, const T* __restrict__ gyv,
-                   T* __restrict__ part, int N, int M, int Q, int D, int P) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_mu = reinterpret_cast<T*>(smem_raw);  // [kZStage][Q]
-  T* s_b = s_mu + kZStage * Q;               // [kZStage][Q]
-  T* s_lg = s_b + kZStage * Q;               // [kZStage]
-  T* s_red = s_lg + kZStage;                 // [kZLanes][kZTileM]
-
-  const int tid = threadIdx.x;
-  const int mm = tid % kZTileM;  // lane of a warp -> inducing point
-  const int lane = tid / kZTileM;  // warp -> every kZLanes-th staged point
-  const int m = blockIdx.x * kZTileM + mm;
-  const int mc = min(m, M - 1);  // out-of-range m computes a real row, unwritten
-  const int p = blockIdx.y;
-  int n0, n1;
-  split_range(N, P, p, &n0, &n1);
-  const T* g = gyv + static_cast<size_t>(mc) * D;
-
-  for (int q0 = 0; q0 < (kWide ? Q : 1); q0 += kMaxQ) {
-    T zm[kMaxQ], acc[kMaxQ];
-#pragma unroll
-    for (int q = 0; q < kMaxQ; ++q) {
-      zm[q] = q0 + q < Q ? Z[static_cast<size_t>(mc) * Q + q0 + q] : T(0);
-      acc[q] = T(0);
-    }
-    for (int base = n0; base < n1; base += kZStage) {
-      const int cnt = min(kZStage, n1 - base);
-      __syncthreads();  // the previous run is consumed
-      if (tid < cnt) {
-        const size_t n = static_cast<size_t>(base + tid);
-        T lg = T(0);
-        for (int q = 0; q < Q; ++q) {
-          const T s = S[n * Q + q];
-          s_mu[tid * Q + q] = mu[n * Q + q];
-          s_b[tid * Q + q] = T(1) / (l2[q] + s);
-          lg += log1p_t(s / l2[q]);
-        }
-        s_lg[tid] = T(-0.5) * lg;
-      }
-      __syncthreads();
-      for (int i = lane; i < cnt; i += kZLanes) {
-        // the exponent in q order: the pass's q's from registers, the
-        // others' z through L1
-        T e = s_lg[i];
-        auto other = [&](int q) {
-          const T dq = s_mu[i * Q + q] - __ldg(Z + static_cast<size_t>(mc) * Q + q);
-          e -= T(0.5) * dq * dq * s_b[i * Q + q];
-        };
-        if constexpr (kWide) {
-          for (int q = 0; q < q0; ++q) other(q);
-        }
-        T d[kMaxQ];
-#pragma unroll
-        for (int q = 0; q < kMaxQ; ++q) {
-          d[q] = T(0);
-          if (q0 + q < Q) {
-            d[q] = s_mu[i * Q + q0 + q] - zm[q];
-            e -= T(0.5) * d[q] * d[q] * s_b[i * Q + q0 + q];
-          }
-        }
-        if constexpr (kWide) {
-          for (int q = q0 + kMaxQ; q < Q; ++q) other(q);
-        }
-        const T* y = Y + static_cast<size_t>(base + i) * D;
-        T yg = T(0);
-        for (int dd = 0; dd < D; ++dd) yg += y[dd] * g[dd];
-        const T w1 = yg * exp_t(e);
-#pragma unroll
-        for (int q = 0; q < kMaxQ; ++q)
-          if (q0 + q < Q) acc[q] += w1 * s_b[i * Q + q0 + q] * d[q];
-      }
-    }
-
-    // sum the kZLanes lanes of each m in a fixed order
-#pragma unroll
-    for (int qq = 0; qq < kMaxQ; ++qq) {
-      const int q = q0 + qq;
-      if (q < Q) {
-        __syncthreads();
-        s_red[lane * kZTileM + mm] = acc[qq];
-        __syncthreads();
-        if (lane == 0 && m < M) {
-          T s = T(0);
-          for (int l = 0; l < kZLanes; ++l) s += s_red[l * kZTileM + mm];
-          part[(static_cast<size_t>(p) * M + m) * Q + q] = s;
-        }
-      }
-    }
+// dz1[i] = sum_w (acc[w, i] + err[w, i]) over the W point-pass blocks'
+// running totals (dz: (2, W, M Q) doubles), in block order, compensated,
+// rounded once to T
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+reduce_dz_kernel(const double* __restrict__ dz, T* __restrict__ dz1, int W, int total) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const size_t plane = static_cast<size_t>(W) * total;
+  double acc = 0.0, err = 0.0;
+  for (int w = 0; w < W; ++w) {
+    const size_t j = static_cast<size_t>(w) * total + i;
+    compensated_add(acc, err, dz[j]);
+    err += dz[plane + j];
   }
+  dz1[i] = static_cast<T>(acc + err);
 }
 
 template <typename T>
 cudaError_t suffstats_bwd(const T* mu, const T* S, const T* Y, const T* Z,
                           const T* l2, const T* ls, const T* Gw, const T* gyv,
                           T* dmu, T* dS, T* dY, T* point_part, T* point_sum,
-                          T* pair_part, T* pair_sum, double* carry, T* pt, T* dz_part,
-                          T* dz1, int N, int M, int Q, int D, int P2, int PZ, int NB,
+                          T* pair_part, T* pair_sum, double* carry, T* pt, double* dz,
+                          T* dz1, int N, int M, int Q, int D, int P2, int W, int NB,
                           int CN, cudaStream_t stream) {
   cudaError_t err = run_chunks<T, true>(P2, CN, stream, mu, S, Y, Z, l2, ls, Gw, gyv,
                                         pair_part, carry, pt, dmu, dS, dY, point_part, N,
-                                        M, Q, D);
+                                        M, Q, D, dz, W);
   if (err != cudaSuccess) return err;
-
-  const dim3 gridZ((M + kZTileM - 1) / kZTileM, PZ);
-  const size_t smemZ = sizeof(T) * (2 * kZStage * Q + kZStage + kZLanes * kZTileM);
-  const auto dz_fn = Q > kMaxQ ? dz1_partial_kernel<T, true> : dz1_partial_kernel<T, false>;
-  err = allow_smem(dz_fn, smemZ);
-  if (err != cudaSuccess) return err;
-  dz_fn<<<gridZ, kThreads, smemZ, stream>>>(mu, S, Y, Z, l2, gyv, dz_part, N, M, Q, D, PZ);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
   err = reduce_partials<T>(point_part, point_sum, NB, 1, 1, Q + 1, stream);
   if (err != cudaSuccess) return err;
   err = reduce_packed<T>(pair_part, pair_sum, P2, Q + 1, M, stream);
   if (err != cudaSuccess) return err;
-  return reduce_partials<T>(dz_part, dz1, PZ, 1, M, Q, stream);
+  reduce_dz_kernel<T><<<(M * Q + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      dz, dz1, W, M * Q);
+  return cudaGetLastError();
+}
+
+// out = [resident point-pass blocks a multiprocessor, their dynamic shared
+// memory bytes] of the instance at Q
+template <typename T>
+cudaError_t point_occupancy(int Q, int* out) {
+  out[1] = static_cast<int>(point_smem_bytes<T, true>(Q));
+  return blocks_per_sm(point_kernel_for<T, true>(Q), out[1], &out[0]);
 }
 
 }  // namespace
@@ -255,10 +186,11 @@ cudaError_t suffstats_bwd(const T* mu, const T* S, const T* Y, const T* Z,
 // Gw (M, M); gyv (M, D); outputs dmu, dS (N, Q), dY (N, D); scratch
 // point_part (NB, Q + 1), pair_part (P2, Q + 1, M (M + 1) / 2), carry
 // (2, P2, Q + 1, M (M + 1) / 2) doubles (null when CN >= N), pt (pair
-// blocks, 1 + 3Q, min(CN, N)), dz_part (PZ, M, Q); sums point_sum (Q + 1) =
-// [dl_point, dv_raw], pair_sum (Q + 1, M, M) = [P, A_1..A_Q], dz1 (M, Q).
-// NB must be ceil(N / 256), CN (points a chunk of the pair and point
-// passes) a multiple of 256 or >= N, and the pair-block count
+// blocks, 1 + 3Q, min(CN, N)), dz (2, W, M, Q) doubles; sums point_sum
+// (Q + 1) = [dl_point, dv_raw], pair_sum (Q + 1, M, M) = [P, A_1..A_Q], dz1
+// (M, Q). NB must be ceil(N / 256), CN (points a chunk of the pair and point
+// passes) a multiple of 256 or >= N, W (point-pass blocks) between 1 and
+// ceil(min(CN, N) / 256), and the pair-block count
 // ceil(M (M + 1) / 2 / pairs per block) with suffstats_bwd_geometry's pairs
 // per block. Launches
 // on `stream`, does not synchronize, returns the first cudaGetLastError()
@@ -267,11 +199,11 @@ cudaError_t suffstats_bwd(const T* mu, const T* S, const T* Y, const T* Z,
   extern "C" int NAME(const T* mu, const T* S, const T* Y, const T* Z, const T* l2, \
                       const T* ls, const T* Gw, const T* gyv, T* dmu, T* dS, T* dY, \
                       T* point_part, T* point_sum, T* pair_part, T* pair_sum,       \
-                      double* carry, T* pt, T* dz_part, T* dz1, int N, int M,       \
-                      int Q, int D, int P2, int PZ, int NB, int CN, void* stream) { \
+                      double* carry, T* pt, double* dz, T* dz1, int N, int M,       \
+                      int Q, int D, int P2, int W, int NB, int CN, void* stream) {  \
     return static_cast<int>(suffstats_bwd<T>(                                      \
         mu, S, Y, Z, l2, ls, Gw, gyv, dmu, dS, dY, point_part, point_sum,          \
-        pair_part, pair_sum, carry, pt, dz_part, dz1, N, M, Q, D, P2, PZ, NB, CN,  \
+        pair_part, pair_sum, carry, pt, dz, dz1, N, M, Q, D, P2, W, NB, CN,        \
         static_cast<cudaStream_t>(stream)));                                       \
   }
 
@@ -283,6 +215,13 @@ SUFFSTATS_BWD_ENTRY(suffstats_bwd_f64, double)
 // instance at Q, on the current device
 extern "C" int suffstats_bwd_geometry(int f64, int Q, int* out) {
   return static_cast<int>(f64 ? pair_geometry<double>(Q, out) : pair_geometry<float>(Q, out));
+}
+
+// out = [resident point-pass blocks a multiprocessor, their dynamic shared
+// memory bytes] for the float (f64 == 0) or double instance at Q, on the
+// current device
+extern "C" int suffstats_bwd_point_occupancy(int f64, int Q, int* out) {
+  return static_cast<int>(f64 ? point_occupancy<double>(Q, out) : point_occupancy<float>(Q, out));
 }
 
 extern "C" const char* suffstats_bwd_error_string(int code) {

@@ -56,15 +56,13 @@ Y_TILE_M, Y_TILE_D, Y_STAGE = 32, 8, 64  # psiY block tile and staging run
 # dynamic shared memory a block may use on sm_90 (227 KB): the only bound on
 # Q, through each kernel's staging (`kernel_smem`)
 SMEM_LIMIT = 232_448
-# N-splits of the psiY and dZ blocks are chosen so that about
+# N-splits of the psiY blocks are chosen so that about
 # this many blocks run at once (4 per SM of a 132-SM H100). A function of
 # the shapes only, so the summation order and hence the bits of the result
 # never change from run to run.
 TARGET_BLOCKS = 4 * 132
-# geometry of csrc/suffstats_bwd.cu: threads (datapoints) per point-pass
-# block, and the dZ pass's inducing-point tile and staging run
+# threads (datapoints) of a reverse point-pass block (csrc/reverse.cuh)
 BWD_THREADS = 256
-Z_TILE_M, Z_STAGE = 32, 64
 # geometry of csrc/psi1_bwd.cu: stages of its ring, the longest run, the
 # fast path's dZ partials (column slots x Q) a lane holds in registers and
 # the column slots it evaluates without a branch
@@ -509,15 +507,13 @@ def _pair_smem(Q: int, itemsize: int) -> int:
 def kernel_smem(lib: str, Q: int, itemsize: int) -> int:
     """The most dynamic shared memory a block of library `lib` (B1-B4) needs
     at Q, from the sources' layouts: the ψ2 pair blocks, B1's psiY blocks,
-    B2's point pass (at a run-time Q it holds the point's mu and b) and
-    B2's dZ pass."""
+    and B2's point pass (at a run-time Q it holds the point's mu and b)."""
     psiy = itemsize * (2 * Y_STAGE * Q + Y_STAGE + Y_STAGE * Y_TILE_D + Y_STAGE * Y_TILE_M
                        + Y_TILE_M * Q + Q)
-    dz1 = itemsize * (2 * Z_STAGE * Q + Z_STAGE + BWD_THREADS)
-    point = 2 * itemsize * Q * BWD_THREADS if Q > 4 else 0
+    point = point_smem(Q, itemsize)
     return {"suffstats_fwd": max(_psi2_fwd_smem(Q, itemsize), psiy),
             "psi2_fwd": _psi2_fwd_smem(Q, itemsize),
-            "suffstats_bwd": max(_pair_smem(Q, itemsize), point, dz1),
+            "suffstats_bwd": max(_pair_smem(Q, itemsize), point),
             "psi2_bwd": _pair_smem(Q, itemsize)}[lib]
 
 
@@ -637,21 +633,48 @@ def bwd_scratch(N: int, M: int, Q: int, geo: Geometry, P2: int) -> tuple:
     return pt, ((2, P2, Q + 1, pair_count(M)) if chunk < N else (0,))
 
 
-def dz_split(N: int, M: int, waves: int = 1) -> Split:
-    """The fused reverse kernel's dZ pass: about `waves` x TARGET_BLOCKS
-    blocks over its inducing-point tiles, no split shorter than one
-    staging run."""
-    tiles = -(-M // Z_TILE_M)
-    return Split(-(-waves * TARGET_BLOCKS // tiles), -(-N // Z_STAGE))
+def point_smem(Q: int, itemsize: int) -> int:
+    """csrc/reverse.cuh: point_smem_bytes of B2's point pass at Q: the
+    run-time-Q instance's per-point mu and b, nothing at Q <= 4."""
+    return 2 * itemsize * Q * BWD_THREADS if Q > 4 else 0
 
 
-def bwd_splits(N: int, M: int, geo: Geometry, sms: int,
-               waves: int = 1) -> tuple[int, int]:
-    """(P2, PZ): N-splits of the reverse kernel's pair pass
-    (`bwd_pair_split` with its own geometry) and of its dZ pass
-    (`dz_split`). Pure functions of the shapes, the geometry and the wave
-    count."""
-    return bwd_pair_split(N, M, geo, sms, waves).count, dz_split(N, M, waves).count
+@functools.lru_cache(maxsize=None)
+def point_occupancy(dtype: torch.dtype, Q: int, device_index: int) -> int:
+    """Resident point-pass blocks of B2 a multiprocessor at Q on the card
+    `device_index`, from the library's occupancy query; checks that the
+    library lays out the shared memory `point_smem` counts."""
+    fn = _build.library("suffstats_bwd").suffstats_bwd_point_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device_index):
+        rc = fn(int(dtype == torch.float64), Q, out)
+    if rc != 0:
+        raise RuntimeError(f"suffstats_bwd point occupancy query failed (cudaError {rc})")
+    want = point_smem(Q, torch.finfo(dtype).bits // 8)
+    if out[1] != want:
+        raise RuntimeError(f"suffstats_bwd's point pass lays out {out[1]} bytes of shared "
+                           f"memory, the host counted {want}")
+    return out[0]
+
+
+def point_blocks(N: int, M: int, pairs_per_block: int, resident: int, sms: int) -> int:
+    """Blocks of B2's point pass: one wave of the card's resident
+    point-pass blocks (`resident` a multiprocessor x `sms`), and no more
+    than the first chunk's 256-point tiles. Block b takes the tiles b,
+    b + blocks, ... of every chunk and sums its dZ columns over all of them
+    (csrc/reverse.cuh: point_kernel). A pure function of the shapes and the
+    occupancy: the order of the dZ sums never changes from run to run."""
+    tiles = -(-point_chunk(N, M, pairs_per_block) // BWD_THREADS)
+    return max(1, min(tiles, resident * sms))
+
+
+def dz_scratch(M: int, Q: int, blocks: int) -> tuple:
+    """Shape of B2's dZ scratch: each point-pass block's running column
+    totals of dZ's psi1 part and their compensation terms, (2, blocks, M,
+    Q) in float64; `blocks` from `point_blocks`, so no N in it."""
+    return (2, blocks, M, Q)
 
 
 def _folded_g2(Z, variance, lengthscale, g2):
@@ -678,25 +701,29 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY, *,
                        waves: int = 1):
     """Cotangents (dmu, dS, dY, dZ, dvariance, dlengthscale) from the CUDA
     reverse kernel given g2 (M, M) and gY (M, D), on mu's device and
-    stream, in the input dtype; its N-splits fill `waves` waves of the card
-    (`bwd_splits`). Raises on inputs the kernel does not take and if the
-    launch fails.
+    stream, in the input dtype; its pair pass's N-splits fill `waves` waves
+    of the card (`bwd_pair_split`). Raises on inputs the kernel does not
+    take and if the launch fails.
 
     The (m, m')-only prefactor is folded into the psi2 cotangent before the
     launch (eq. (9)); the kernel returns the per-point cotangents, dl and
     v dv summed over the points, and the pair sums P_ab = sum_n E_nab and
     A_abq = sum_n E_nab r_nq (mu_nq - zbar_abq), which the O(M^2 Q)
-    epilogue here turns into the psi2 part of dZ (eq. (18)). Scratch: the
-    pair pass's packed partials, their running totals between chunks and
-    one chunk's per-(pair block, point) sums (`bwd_scratch`): about
-    N (1 + 3Q) elements, with no pair-block x N factor."""
+    epilogue here turns into the psi2 part of dZ (eq. (18)); the point
+    pass sums dZ's psi1 part. Scratch: the pair pass's packed partials,
+    their running totals between chunks and one chunk's per-(pair block,
+    point) sums (`bwd_scratch`): about N (1 + 3Q) elements, with no
+    pair-block x N factor; and the point-pass blocks' dZ totals
+    (`dz_scratch`), with no N in it."""
     global BWD_LAUNCHES
     check_inputs(mu, S, Y, Z, variance, lengthscale, what="suffstats_bwd_cuda",
                  lib="suffstats_bwd", waves=waves, g2=g2, gY=gY)
     N, Q = mu.shape
     M, D = Z.shape[0], Y.shape[1]
     geo, sms = card_geometry("suffstats_bwd", mu)
-    P2, PZ = bwd_splits(N, M, geo, sms, waves)
+    P2 = bwd_pair_split(N, M, geo, sms, waves).count
+    W = point_blocks(N, M, geo.pairs_per_block,
+                     point_occupancy(mu.dtype, Q, card_of(mu)[0]), sms)
     NB = -(-N // BWD_THREADS)
     ls = lengthscale.contiguous()
     l2 = (ls * ls).contiguous()
@@ -710,10 +737,11 @@ def suffstats_bwd_cuda(mu, S, Y, Z, variance, lengthscale, g2, gY, *,
     pt_shape, carry_shape = bwd_scratch(N, M, Q, geo, P2)
     pt = mu.new_empty(pt_shape)
     carry = mu.new_empty(carry_shape, dtype=torch.float64)
-    dz_part, dz1 = mu.new_empty(PZ, M, Q), mu.new_empty(M, Q)
+    dz = mu.new_empty(dz_scratch(M, Q, W), dtype=torch.float64)
+    dz1 = mu.new_empty(M, Q)
     launch("suffstats_bwd", (mu, S, Y, Z, l2, ls, Gw, gyv, dmu, dS, dY, point_part,
-                             point_sum, pair_part, pair_sum, carry, pt, dz_part, dz1),
-           (N, M, Q, D, P2, PZ, NB, pt_shape[2]))
+                             point_sum, pair_part, pair_sum, carry, pt, dz, dz1),
+           (N, M, Q, D, P2, W, NB, pt_shape[2]))
     BWD_LAUNCHES += 1
     dZ = dz1 + _psi2_dZ(Z, l2, G2p, pair_sum)
     dv = (point_sum[Q] / variance).reshape(variance.shape)

@@ -140,6 +140,9 @@ class Card:
                           plan: ss.Psi1BwdPlan) -> int:
         return ss.psi1_bwd_occupancy(dtype, M, Q, plan, self.index)
 
+    def point_resident(self, dtype: torch.dtype, Q: int) -> int:
+        return ss.point_occupancy(dtype, Q, self.index)
+
 
 class Launch(NamedTuple):
     """A launch's plan: the `Split` of each pass over N and the elements
@@ -199,16 +202,18 @@ def launch_plan(kernel_name: str, waves: int, problem: Problem, dtype, card) -> 
             splits, scratch = (pair,), (pair.count * pairs,)
         return Launch(splits, scratch, size * sum(scratch))
     if lib in ("suffstats_bwd", "psi2_bwd"):
-        # the pair partials (and B2's dZ partials) in the input dtype; the
-        # splits' running pair sums between chunks in float64
+        # the pair partials in the input dtype; the splits' running pair
+        # sums between chunks (and B2's point-pass blocks' dZ totals) in
+        # float64
         geo = card.psi2_geometry(lib, dtype, Q)
         pair = ss.bwd_pair_split(N, M, geo, card.sms, waves)
-        carry = math.prod(ss.bwd_scratch(N, M, Q, geo, pair.count)[1])
-        splits, scratch = (pair,), (pair.count * (Q + 1) * pairs,)
+        doubles = (math.prod(ss.bwd_scratch(N, M, Q, geo, pair.count)[1]),)
         if lib == "suffstats_bwd":
-            z = ss.dz_split(N, M, waves)
-            splits, scratch = (pair, z), (*scratch, z.count * M * Q)
-        return Launch(splits, (*scratch, carry), size * sum(scratch) + 8 * carry)
+            W = ss.point_blocks(N, M, geo.pairs_per_block, card.point_resident(dtype, Q),
+                                card.sms)
+            doubles = (math.prod(ss.dz_scratch(M, Q, W)), *doubles)
+        scratch = pair.count * (Q + 1) * pairs
+        return Launch((pair,), (scratch, *doubles), size * scratch + 8 * sum(doubles))
     if lib == "psi1_bwd":
         plan = ss.psi1_bwd_plan(M, Q, size)
         resident = card.psi1_bwd_resident(dtype, M, Q, plan) * card.sms

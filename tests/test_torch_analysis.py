@@ -20,6 +20,7 @@ import torch
 from repro.analysis import jaxpr_check
 from repro_torch import analysis
 from repro_torch.analysis import kernel_audit, lint
+from repro_torch.kernels import suffstats as tss
 from repro_torch.launch.memory import intermediate_report, peak_intermediate_bytes
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures" / "torch_analysis"
@@ -263,17 +264,25 @@ def test_clean_tree_kernels_audit_clean():
         assert 0 < a.smem_bytes <= kernel_audit.SMEM_BUDGET_BYTES
         assert a.compute == {"bfloat16": "float32", "float16": "float32",
                              "float32": "float32", "float64": "float64"}
-    # the reverse kernels' extra passes are planned: B2 pair, point and dZ
+    # the reverse kernels' extra passes are planned: B2 pair and point (its
+    # point pass sums dZ's psi1 part)
     by = {(a.name, a.dtype): a for a in audits}
     assert [p.name for p in by["suffstats_bwd_pallas", "float32"].passes] == [
-        "pair", "point", "dZ"]
+        "pair", "point"]
 
 
 def test_audit_plans_every_split_of_the_dry_run_shape():
     audits = kernel_audit.audit_kernels(kernel_audit.Problem(16_777_216, 128, 1, 3))
     assert all(a.fits and not a.findings for a in audits)
     b2 = next(a for a in audits if a.name == "suffstats_bwd_pallas")
-    assert b2.passes[1].grid == (-(-16_777_216 // 256),)
+    card = kernel_audit.StandInCard()
+    geo = card.psi2_geometry("suffstats_bwd", torch.float32, 1)
+    # one wave of point-pass blocks walks each chunk's 256-point tiles
+    blocks = card.point_resident(torch.float32, 1) * card.sms
+    assert b2.passes[1].grid == (blocks,)
+    assert blocks == tss.point_blocks(16_777_216, 128, geo.pairs_per_block,
+                                      card.point_resident(torch.float32, 1), card.sms)
+    assert blocks < -(-tss.point_chunk(16_777_216, 128, geo.pairs_per_block) // 256)
 
 
 def test_bloated_plan_fixture_exceeds_a_mock_shared_memory_budget():

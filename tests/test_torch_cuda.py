@@ -716,7 +716,7 @@ def _recording(monkeypatch):
 
 
 # where each library's launch carries its split counts
-_SPLIT_INTS = {"suffstats_fwd": (4, 5), "suffstats_bwd": (4, 5), "psi2_fwd": (3,),
+_SPLIT_INTS = {"suffstats_fwd": (4, 5), "suffstats_bwd": (4,), "psi2_fwd": (3,),
                "psi2_bwd": (3,), "psi1_fwd": (4,), "kfu_fwd": (4,), "psi1_bwd": (3,)}
 
 

@@ -256,7 +256,8 @@ def test_warm_cache_second_process_does_zero_timing_runs(tmp_path):
 class FakeCard:
     """What `search.Card` reports, with H100-like numbers: 132 SMs; psi2
     pair blocks of 512 pairs, 2 a multiprocessor, runs of 128; 8 cross
-    blocks and 2 psi1-reverse blocks a multiprocessor."""
+    blocks, 2 psi1-reverse blocks and 3 B2 point-pass blocks a
+    multiprocessor."""
     sms = 132
 
     def psi2_geometry(self, lib, dtype, Q):
@@ -268,13 +269,17 @@ class FakeCard:
     def psi1_bwd_resident(self, dtype, M, Q, plan):
         return 2
 
+    def point_resident(self, dtype, Q):
+        return 3
+
 
 def _parent_counts(name, N, M, Q, D, dtype, card):
     """The split counts each wrapper launched before tuning existed, in the
     formulas of its parent commit; the reverse pair passes (B2, B4) split
     each chunk of about N / (pair blocks) points, whole point-pass blocks,
     over which they run since their per-point scratch lost its pair-block
-    factor."""
+    factor. B2's dZ pass, once split as (TARGET_BLOCKS over its 32-column
+    tiles, no split under 64 points), is gone: its point pass sums dZ."""
     size = torch.finfo(dtype).bits // 8
     if name in ("suffstats_pallas", "suffstats_bwd_pallas", "psi2_pallas",
                 "psi2_bwd_pallas"):
@@ -287,9 +292,6 @@ def _parent_counts(name, N, M, Q, D, dtype, card):
         if name == "suffstats_pallas":
             y_blocks = -(-M // 32) * -(-D // 8)
             return p2, max(1, min(-(-tss.TARGET_BLOCKS // y_blocks), -(-N // 64)))
-        if name == "suffstats_bwd_pallas":
-            tiles = -(-M // 32)
-            return p2, max(1, min(-(-tss.TARGET_BLOCKS // tiles), -(-N // 64)))
         return (p2,)
     if name == "psi1_bwd_pallas":
         plan = tss.psi1_bwd_plan(M, Q, size)
@@ -347,8 +349,9 @@ def test_clamped_and_repeated_grids_are_not_candidates():
 
 def test_scratch_and_shared_memory_gate(monkeypatch):
     card = FakeCard()
-    # B2's partials, (P2, Q + 1, M(M+1)/2) and (PZ, M, Q), grow with the
-    # waves: a limit between two and four waves' scratch admits [1, 2]
+    # B2's pair partials, (P2, Q + 1, M(M+1)/2), grow with the waves (its
+    # dZ totals do not): a limit between two and four waves' scratch admits
+    # [1, 2]
     prob = search.measure_problem("suffstats_bwd_pallas", 100, 1, torch.float64, card)
     plans = {w: search.launch_plan("suffstats_bwd_pallas", w, prob, torch.float64, card)
              for w in search.WAVE_CANDIDATES}
