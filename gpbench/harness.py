@@ -25,17 +25,31 @@ window untraced first, and then a second one, of at most TRACE_SECONDS,
 under the profiler: the per-layer metrics take the time of a step or build
 from the first, which the profiler's host work does not slow, and only
 device times from the trace.
+
+A cell whose `chips` is more than 1 runs in that many ranks, one a card
+(`gpbench/ranks.py` starts them), through the program's `mesh=` path:
+every rank draws the whole problem and keeps its rows, and the window runs
+a fixed count of steps, set from the set-up steps' pace and agreed over
+the ranks before it, so that every rank issues as many all-reduces. Its
+length is the first rank's host clock. The first rank alone is traced and
+its readers see its own shard's shapes; the check gathers the checked
+state from every rank in row order and adds `rank_gap` (the largest
+difference of a global leaf between ranks) and `step_gap` (of the ranks'
+step counts), each with the limit 0.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib.util
 import json
+import math
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from gpbench import check, problem, program, trace
@@ -151,11 +165,13 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _window(issue: Callable[[], torch.Tensor], seconds: float, dev) -> tuple:
+def _window(issue: Callable[[], torch.Tensor], seconds: float, dev,
+            steps: Optional[int] = None) -> tuple:
     """(items issued, items whose output held a value that is not finite,
-    seconds): issue work until `seconds` have passed, then wait for the
-    device. The outputs are tallied on the device, so neither the host's
-    pace nor the memory peak depends on how many items the window holds."""
+    seconds): issue work until `seconds` have passed, or, where `steps` is
+    given, that many items, then wait for the device. The outputs are
+    tallied on the device, so neither the host's pace nor the memory peak
+    depends on how many items the window holds."""
     bad = torch.zeros((), dtype=torch.int64, device=dev)
     done = 0
     t0 = time.perf_counter()
@@ -163,7 +179,7 @@ def _window(issue: Callable[[], torch.Tensor], seconds: float, dev) -> tuple:
         while True:
             bad += (~torch.isfinite(issue())).any()
             done += 1
-            if time.perf_counter() - t0 >= seconds:
+            if done == steps or (steps is None and time.perf_counter() - t0 >= seconds):
                 break
         _sync(dev)
     return done, int(bad), time.perf_counter() - t0
@@ -223,24 +239,91 @@ def _validate(traced: trace.Traced, params, Y, ops: tuple, dev, log) -> Dict[str
     return out
 
 
+def _ranks(cell: Cell) -> Optional[tuple]:
+    """(this rank, ranks) for a cell on several cards, whose process group
+    the launcher (`gpbench/ranks.py`) has joined; None for one card."""
+    if cell.chips == 1:
+        return None
+    if not dist.is_initialized() or dist.get_world_size() != cell.chips:
+        raise RuntimeError(f"{cell.name} runs as {cell.chips} ranks, one a card: "
+                           "start it through gpbench/run.py")
+    return dist.get_rank(), cell.chips
+
+
+def _most(values: List[int], dev) -> List[int]:
+    """Each number's largest over the ranks, in one collective."""
+    t = torch.tensor(values, dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
+def _gather_rows(t: torch.Tensor, N: int, dev) -> Optional[torch.Tensor]:
+    """On the first rank, every rank's rows of a local leaf in row order
+    (rank r holds rows [N r / W, N (r + 1) / W)), on the host; None on the
+    others. One all-gather of the rows, each rank's padded to the most a
+    rank holds."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    bounds = [N * r // world for r in range(world + 1)]
+    most = max(b - a for a, b in zip(bounds, bounds[1:]))
+    x = t.to(dev)
+    pad = x.new_zeros((most, *x.shape[1:]))
+    pad[:x.shape[0]] = x
+    out = x.new_empty((world * most, *x.shape[1:]))
+    dist.all_gather_into_tensor(out, pad)
+    if rank:
+        return None
+    return torch.cat([out[r * most:r * most + b - a]
+                      for r, (a, b) in enumerate(zip(bounds, bounds[1:]))]).cpu()
+
+
+def _gather(tree, keys, N: int, dev):
+    """`tree` with each leaf under `keys` gathered on the first rank."""
+    return {k: _gather_rows(v, N, dev) if k in keys else v for k, v in tree.items()}
+
+
+def _rank_gap(trees, keys, dev) -> float:
+    """The largest difference of any global leaf (the leaves not under
+    `keys`) of any of `trees` between a rank and the first; every rank
+    holds the same bits where the scheme is sound."""
+    flat = torch.cat([v.reshape(-1) for tree in trees for path, v in check.leaves(
+        {k: x for k, x in tree.items() if k not in keys}).items()]).to(dev)
+    seen = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(seen, flat)
+    gap = max(float((x - seen[0]).abs().max()) for x in seen)
+    return gap if gap == gap else math.inf
+
+
 def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: float,
         log: Callable[[str], None] = print, shape_override: Optional[dict] = None,
-        plant: Optional[Callable] = None, numbers_out: Optional[dict] = None) -> dict:
+        plant: Optional[Callable] = None, numbers_out: Optional[dict] = None,
+        ref_cache: Optional[dict] = None) -> Optional[dict]:
     """The result of one run (the benchmark's last line as a dict), with
     `checks` holding each compared number beside its limit.
 
+    A cell on several cards runs in each of its ranks (`gpbench/ranks.py`
+    starts them, one a card): every rank draws the whole problem and keeps
+    its rows, the window runs a step count agreed before it, and the first
+    rank reads the trace, gathers the checked state and runs the check;
+    the other ranks return None.
+
     `shape_override` replaces the configuration's shapes, `plant` wraps
-    the program (a planted fault) and `numbers_out` receives every number
-    the check computed, compared or not; the benchmark's own runs use
-    none of them."""
+    the program (a planted fault or a control), `numbers_out` receives
+    every number the check computed, compared or not, and `ref_cache`
+    keeps the reference's result for the next run of the same seed; the
+    benchmark's own runs use none of them."""
     dev = torch.device(device)
     shape = dict(cell.config, **(shape_override or {}))
     tr = cell.traffic
-    prog = program.GPLVM(shape, lr=tr.get("lr", 1e-2))
+    kind = tr["kind"]
+    ranks = _ranks(cell)
+    lead = ranks is None or ranks[0] == 0
+    if ranks is not None and kind != "train":
+        raise ValueError(f"{cell.name}: a cell on several cards drives the 'train' kind only")
+    prog = program.GPLVM(shape, lr=tr.get("lr", 1e-2), mesh=None if ranks is None else dev.type)
     if plant is not None:
         prog = plant(prog)
-    params, Y = problem.draw(shape, seed, dev, tr.get("perturb"))
-    kind = tr["kind"]
+    params, Y = prog.place(*problem.draw(shape, seed, dev, tr.get("perturb")))
+    steps = None  # on several cards, every rank's count of window items
     if kind == "train":
         opt = prog.adam_init(params)
         losses, m1 = [], None
@@ -249,8 +332,18 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
             losses.append(loss)
             if k == 0:
                 m1 = _host(opt.m)
+                t_paced = time.perf_counter()
+        _sync(dev)
+        pace = (time.perf_counter() - t_paced) / max(1, tr["check_steps"] - 1)
         checked = {"losses": [float(x) for x in losses], "m1": m1, "params": _host(params)}
         state = {"params": params, "opt": opt}
+        if ranks is not None:
+            # the window's steps, from the pace of the set-up steps after the
+            # first, the most any rank asks for: every rank runs as many, or
+            # an all-reduce hangs
+            if tr["check_steps"] < 2:
+                raise ValueError(f"{cell.name}: the pace needs 2 check steps or more")
+            steps = _most([max(1, round(seconds / pace))], dev)[0]
 
         def issue():
             state["params"], state["opt"], value = prog.train_step(state["params"], state["opt"], Y)
@@ -276,18 +369,37 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
         torch.cuda.reset_peak_memory_stats(dev)
     setup_s = time.perf_counter() - t_start
     ops = (program.STATS_FWD_OP,) + ((program.STATS_BWD_OP,) if kind == "train" else ())
-    done, failed, window_s = _window(issue, seconds, dev)
+    done, failed, window_s = _window(issue, seconds, dev, steps)
     if traced:
         item_s = window_s / done
-        with trace.profiling() as holder:
+        steps_t = None if steps is None else max(
+            1, round(steps * min(seconds, TRACE_SECONDS) / seconds))
+        # the first rank alone is traced; the others run the same steps
+        with trace.profiling() if lead else contextlib.nullcontext([]) as holder:
             issue()  # the profiler's first activity, outside the window
             _sync(dev)
-            done_t, failed_t, _ = _window(issue, min(seconds, TRACE_SECONDS), dev)
+            done_t, failed_t, _ = _window(issue, min(seconds, TRACE_SECONDS), dev, steps_t)
         done, failed = done + done_t, failed + failed_t
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    extra = {}  # the numbers only a cell on several cards has
+    if ranks is not None:
+        peak_setup, peak, most, least = _most([peak_setup, peak, done, -done], dev)
+        extra["step_gap"] = float(most + least)
+        extra["rank_gap"] = _rank_gap([checked["params"], _host(state["params"])],
+                                      prog.local_keys, dev)
+        for key in ("m1", "params"):
+            checked[key] = _gather(checked[key], prog.local_keys, shape["N"], dev)
+        if lead:
+            log(f"ranks: {ranks[1]}, {done} steps on rank 0, step_gap {most + least} "
+                f"({steps} agreed a window, {pace * 1e3:.2f} ms a set-up step)")
+        else:
+            del issue, state, params, Y, opt
+            _free(dev)
+            return None
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-                   "count": 1, "memory_peak_bytes": max(peak_setup, peak)}
+                   "count": 1 if ranks is None else ranks[1],
+                   "memory_peak_bytes": max(peak_setup, peak)}
     metrics, breakdown = {}, None
     if traced:
         t0 = time.perf_counter()
@@ -298,7 +410,9 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
             f"{1e3 * t.busy_s / done_t:.4f} busy")
         cur = state["params"] if kind == "train" else params
         validated = _validate(t, cur, Y, ops, dev, log)
-        reading = Reading(t, done_t, item_s, shape, validated)
+        # the readers see this card's share: its rows of the points
+        local = shape if ranks is None else dict(shape, N=Y.shape[0])
+        reading = Reading(t, done_t, item_s, local, validated)
         for m in cell.per_layer:
             value = load_reader(m).read(reading)
             if value is not None:
@@ -321,12 +435,21 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
     detail = {} if numbers_out is not None else None
     params0, Y0 = problem.draw(shape, seed, dev, tr.get("perturb"))
     num = reference.Numerics.of("float64", problem.DTYPES[shape["dtype"]])
+    key = (json.dumps(shape, sort_keys=True), json.dumps(tr, sort_keys=True), seed)
+    if ref_cache is not None and key not in ref_cache:
+        ref_cache.clear()  # one seed's at a time
+    ref = None if ref_cache is None else ref_cache.get(key)
     if kind == "train":
-        ref = reference.train(params0, Y0, tr["check_steps"], tr.get("lr", 1e-2), num)
+        if ref is None:
+            ref = reference.train(params0, Y0, tr["check_steps"], tr.get("lr", 1e-2), num)
         numbers = check.train_numbers(checked, ref, params0, detail)
     else:
-        ref = reference.build(params0, Y0, num)
+        if ref is None:
+            ref = reference.build(params0, Y0, num)
         numbers = check.merge([check.build_numbers(s, ref) for s in kept.values()])
+    if ref_cache is not None:
+        ref_cache[key] = ref
+    numbers.update(extra)
     log(f"reference: {time.perf_counter() - t_ref:.1f} s")
     if numbers_out is not None:
         numbers_out.update(numbers, detail=detail)

@@ -1,5 +1,8 @@
 """The benchmark of `repro_torch`, the PyTorch and CUDA port: one run of one
-cell on the CUDA card of the machine it starts on.
+cell on the CUDA cards of the machine it starts on. A cell whose `chips`
+is 1 runs in this process on card 0; one on several cards runs as that many
+processes, one rank a card (`gpbench/ranks.py`), and this process prints
+the first rank's result once every rank has ended well.
 
     python3 gpbench/run.py --workload gplvm-2p24.fit --seed 7 --seconds 20 --trace 0
 
@@ -8,8 +11,9 @@ It prints, as the last line of standard output, one JSON object: `correct`,
 `--trace 0`, its per-layer metrics with `--trace 1`), `device`, with
 `--trace 1` a `breakdown`, and last `checks`, each number the check
 compared beside its limit; the same numbers close standard error. It exits
-with another code than 0, and prints no result, without a CUDA device, if
-the program cannot be imported, or if JAX or the JAX package was loaded.
+with another code than 0, and prints no result, without as many CUDA
+devices as the cell asks for, if the program cannot be imported, if a rank
+fails or hangs, or if JAX or the JAX package was loaded.
 Run it from the root of a checkout; it builds and caches only inside it.
 """
 from __future__ import annotations
@@ -22,11 +26,11 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import signal  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 # caches a library could write, kept inside the checkout at fixed paths
 CACHE_DIRS = {"TRITON_CACHE_DIR": "build/gpbench/triton",
               "TORCH_EXTENSIONS_DIR": "build/gpbench/torch_extensions"}
@@ -34,12 +38,6 @@ CACHE_DIRS = {"TRITON_CACHE_DIR": "build/gpbench/triton",
 
 def _err(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-def forbidden_modules() -> list:
-    """Top-level names of loaded modules that are JAX's or the JAX package's,
-    compared whole."""
-    return sorted({name.split(".")[0] for name in sys.modules} & set(FORBIDDEN))
 
 
 def _clean(x):
@@ -64,7 +62,7 @@ def main(argv=None) -> int:
         ap.error("--seed must be a whole number >= 0")
 
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    from gpbench import harness
+    from gpbench import harness, ranks
 
     cell = harness.load_cell(args.workload)
     os.environ.update({k: str(ROOT / v) for k, v in CACHE_DIRS.items()})
@@ -82,11 +80,20 @@ def main(argv=None) -> int:
     except ImportError as e:
         _err(f"gpbench: the program cannot be imported: {e}")
         return 2
-    torch.set_num_threads(4)
-    torch.cuda.set_device(0)
-    result = harness.run(cell, args.seed, args.seconds, bool(args.trace), "cuda", T_START,
-                         log=_err)
-    found = forbidden_modules()
+    if want == 1:
+        torch.set_num_threads(4)
+        torch.cuda.set_device(0)
+        result = harness.run(cell, args.seed, args.seconds, bool(args.trace), "cuda", T_START,
+                             log=_err)
+    else:
+        # ended from outside, the launcher still ends its ranks
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+        runs = ranks.launch(cell, [(args.seed, "program")], args.seconds, bool(args.trace),
+                            T_START)
+        if runs is None:
+            return 4
+        result = runs[0]["result"]
+    found = ranks.forbidden_modules()
     if found:
         _err(f"gpbench: JAX or the JAX package was loaded: {', '.join(found)}")
         return 3

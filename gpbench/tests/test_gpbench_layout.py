@@ -16,6 +16,7 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 TRAIN_NUMBERS = {"loss_gap", "grad_gap", "change_gap", "grad_diff", "change_diff"}
 BUILD_NUMBERS = {"stats_rel", "n_gap", "state_rel"}
+RANK_NUMBERS = {"rank_gap", "step_gap"}  # a cell on several cards
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
@@ -27,6 +28,11 @@ def test_names_and_keys():
     assert all(NAME.match(n) for n in names)
     for k in ("configs", "workloads"):
         assert len({x["name"] for x in BENCH[k]}) == len(BENCH[k])
+    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+    assert len(set(pairs)) == len(pairs)
+    four = [w for w in BENCH["workloads"] if w["chips"] == 4]
+    assert all(w["chips"] in (1, 4) for w in BENCH["workloads"])
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
     metrics = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
     assert len(set(metrics)) == len(metrics)
     assert any(m["name"] == "setup_s" for m in BENCH["end_to_end"])
@@ -49,6 +55,9 @@ def test_cell_loads(name):
         assert m["moves"] in e2e
         harness.load_reader(m)
     numbers = TRAIN_NUMBERS if cell.traffic["kind"] == "train" else BUILD_NUMBERS
+    if cell.chips > 1:
+        numbers = numbers | RANK_NUMBERS
+        assert RANK_NUMBERS <= set(cell.limits)
     assert cell.limits and set(cell.limits) <= numbers
 
 

@@ -6,6 +6,8 @@ what the per-layer readers need.
   * an op's device time is the time of the device work whose launch (a
     runtime or driver call, matched by correlation id) the op or its
     children made, summed over the op's calls;
+  * each kernel's device seconds by name (the collectives' kernels
+    among them);
   * the breakdown: the device operations that took most time, and the
     longest idle gaps, each named by the innermost host op that was
     running when the device went idle.
@@ -31,6 +33,7 @@ class Traced(NamedTuple):
     op_names: Dict[str, List[str]]  # the distinct event names that mention each op
     device_ops: List[Tuple[str, float]]
     idle_gaps: List[Tuple[str, float]]
+    kernel_s: Dict[str, float]  # device seconds by kernel name inside the window, all of them
 
 
 @contextlib.contextmanager
@@ -96,7 +99,7 @@ def summarize(prof, ops: Tuple[str, ...]) -> Optional[Traced]:
         by_kernel[name] = by_kernel.get(name, 0.0) + (t - s) * 1e-6
     device_ops = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP]
     return Traced((w1 - w0) * 1e-6, sum(t - s for s, t in busy) * 1e-6, op_s, op_n, names,
-                  [[n[:160], v] for n, v in device_ops], _gaps(busy, cpu, w0, w1))
+                  [[n[:160], v] for n, v in device_ops], _gaps(busy, cpu, w0, w1), by_kernel)
 
 
 def _span(e) -> bool:
