@@ -3,7 +3,10 @@ the check against the reference.
 
 A cell is an entry of `BENCHMARK.json`'s `workloads`. Everything that
 belongs to it is found by name: its configuration (`configs/<config>.json`:
-shapes, dtype, backend, the program's environment), its traffic mix
+the model, shapes, dtype, backend, the program's environment), the model's
+module (`models/<model>.py`: the draw, the calls into the program, the
+reference, the ops the readers time, the least work and the planted
+faults; `gpbench/models/__init__.py` lists them), its traffic mix
 (`traffic/<traffic>.json`: which loop drives the window and its
 parameters), the limits of its check (`limits/<cell>.json`) and one reader
 per per-layer quantity (`metrics/<the metric's name before its first
@@ -46,14 +49,14 @@ import json
 import math
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from gpbench import check, problem, program, trace
-from gpbench.reference import gplvm as reference
+from gpbench import check, problem, trace, work
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
@@ -77,6 +80,7 @@ class Cell(NamedTuple):
     limits: Dict[str, float]
     end_to_end: List[dict]  # the cell's end-to-end metrics
     per_layer: List[dict]  # the cell's per-layer metrics
+    model: ModuleType  # the configuration's model (`models/<model>.py`)
 
 
 def _json(path: Path) -> dict:
@@ -91,6 +95,14 @@ def _reports(metric: dict, cell: str, e2e: List[str]) -> bool:
     return metric["moves"] in e2e
 
 
+def model_of(name: str, here: Path = HERE) -> ModuleType:
+    """The module of the model a configuration names, `models/<name>.py`."""
+    if not (here / "models" / f"{name}.py").is_file():
+        have = sorted(p.stem for p in (here / "models").glob("*.py") if p.stem != "__init__")
+        raise KeyError(f"model {name!r}: no gpbench/models/{name}.py; have {have}")
+    return importlib.import_module(f"gpbench.models.{name}")
+
+
 def load_cell(name: str, bench: Optional[dict] = None, here: Path = HERE) -> Cell:
     bench = bench if bench is not None else _json(ROOT / "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -103,7 +115,8 @@ def load_cell(name: str, bench: Optional[dict] = None, here: Path = HERE) -> Cel
     names = [m["name"] for m in e2e]
     per_layer = [m for m in bench["per_layer"] if _reports(m, name, names)]
     return Cell(name, w["chips"], config, _json(here / "traffic" / f"{w['traffic']}.json"),
-                _json(here / "limits" / f"{name}.json"), e2e, per_layer)
+                _json(here / "limits" / f"{name}.json"), e2e, per_layer,
+                model_of(config["model"], here))
 
 
 def program_env(cell: Cell, root: Path = ROOT) -> Dict[str, str]:
@@ -131,13 +144,14 @@ def load_reader(metric: dict, here: Path = HERE):
 class Reading(NamedTuple):
     """What a per-layer reader reads: the traced window, the work it
     completed, the time of a step or build in the untraced window before
-    it, the cell's shapes, and which ops' attributed times agreed with
-    their kernels timed alone."""
+    it, the cell's shapes, which ops' attributed times agreed with their
+    kernels timed alone, and the cell's model (its ops and least work)."""
     traced: trace.Traced
     done: int  # steps or builds in the traced window
     item_s: float  # seconds a step or build, untraced
     shape: dict
     validated: Dict[str, bool]
+    model: ModuleType
 
     def op_seconds(self, op: str) -> Optional[float]:
         """Device seconds a call of `op`, where the trace saw and could
@@ -158,6 +172,25 @@ class Reading(NamedTuple):
     def shapes(self):
         s = self.shape
         return s["N"], s["M"], s["Q"], s["D"], s["dtype"]
+
+    def step_mfu(self, kind: str) -> Optional[float]:
+        """The least work of the model's step or build of traffic `kind` at
+        the card's peaks over the untraced step or build, in %; None where
+        the model has no such item."""
+        fn = self.model.STEP_WORK.get(kind)
+        if fn is None:
+            return None
+        return 100 * work.bound_s(fn(*self.shapes()), self.shape["dtype"]) / self.per_item_s()
+
+    def roofline(self, kernel: str) -> Optional[float]:
+        """The model's kernel `kernel` (`ROOFLINES`): its least work at the
+        card's peaks over the device time of a call of its op, in %; None
+        where the model has no such kernel or the op's time is not read."""
+        op, fn = self.model.ROOFLINES.get(kernel, (None, None))
+        t = None if op is None else self.op_seconds(op)
+        if t is None:
+            return None
+        return 100 * work.bound_s(fn(*self.shapes()), self.shape["dtype"]) / t
 
 
 def _sync(dev: torch.device) -> None:
@@ -198,7 +231,7 @@ def _free(dev) -> None:
 
 
 def _time_alone(fn, args) -> float:
-    """Seconds a launch of `fn(*args)`, over TIMED_LAUNCHES back to back
+    """Seconds a call of `fn(*args)`, over TIMED_LAUNCHES back to back
     between CUDA events, after one untimed."""
     fn(*args)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -210,31 +243,28 @@ def _time_alone(fn, args) -> float:
     return start.elapsed_time(end) * 1e-3 / TIMED_LAUNCHES
 
 
-def _validate(traced: trace.Traced, params, Y, ops: tuple, dev, log) -> Dict[str, bool]:
+def _validate(traced: trace.Traced, model, params, data, ops: tuple, dev,
+              log) -> Dict[str, bool]:
     """Each op's traced device time a call against its kernels timed alone
-    at the same inputs; agreement within AGREE validates the op."""
-    kernels = program.kernels_alone()
+    at the same inputs (`model.timed_alone`); agreement within AGREE
+    validates the op."""
+    calls = None
+    if dev.type == "cuda":
+        with torch.no_grad():
+            calls = model.timed_alone(params, data, dev)
     out = {}
-    if kernels is None or dev.type != "cuda":
+    if calls is None:
         log("trace check: the kernels cannot be timed alone here; attributed times not used")
         return {op: False for op in ops}
-    M, D = params["Z"].shape[0], Y.shape[1]
     with torch.no_grad():
-        args = (params["q_mu"], torch.exp(params["q_logS"]), Y, params["Z"],
-                torch.exp(params["kern"]["log_variance"]),
-                torch.exp(params["kern"]["log_lengthscale"]))
-        cot = (torch.full((M, M), 1e-3, device=dev, dtype=Y.dtype),
-               torch.full((M, D), 1e-3, device=dev, dtype=Y.dtype))
-        calls = {program.STATS_FWD_OP: (kernels[0], args),
-                 program.STATS_BWD_OP: (kernels[1], (*args, *cot))}
-        alone = {op: _time_alone(*calls[op]) for op in ops}
+        alone = {op: _time_alone(*calls[op][:2]) / calls[op][2] for op in ops}
     for op in ops:
         n = traced.op_calls.get(op, 0)
         seen = traced.op_device_s[op] / n if n else 0.0
         ok = seen > 0 and abs(seen - alone[op]) <= AGREE * alone[op]
         out[op] = ok
         log(f"trace check: {op} {n} calls, traced {seen * 1e3:.4f} ms a call, "
-            f"alone {alone[op] * 1e3:.4f} ms a launch: {'agree' if ok else 'DISAGREE'}"
+            f"alone {alone[op] * 1e3:.4f} ms a call: {'agree' if ok else 'DISAGREE'}"
             f" (events named {traced.op_names.get(op)})")
     return out
 
@@ -319,16 +349,18 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
     lead = ranks is None or ranks[0] == 0
     if ranks is not None and kind != "train":
         raise ValueError(f"{cell.name}: a cell on several cards drives the 'train' kind only")
-    prog = program.GPLVM(shape, lr=tr.get("lr", 1e-2), mesh=None if ranks is None else dev.type)
+    model = cell.model
+    prog = model.Program(shape, lr=tr.get("lr", 1e-2), mesh=None if ranks is None else dev.type,
+                         device=dev)
     if plant is not None:
-        prog = plant(prog)
-    params, Y = prog.place(*problem.draw(shape, seed, dev, tr.get("perturb")))
+        prog = plant(prog, model)
+    params, data = prog.place(*model.draw(shape, seed, dev, tr.get("perturb")))
     steps = None  # on several cards, every rank's count of window items
     if kind == "train":
         opt = prog.adam_init(params)
         losses, m1 = [], None
         for k in range(tr["check_steps"]):
-            params, opt, loss = prog.train_step(params, opt, Y)
+            params, opt, loss = prog.train_step(params, opt, data)
             losses.append(loss)
             if k == 0:
                 m1 = _host(opt.m)
@@ -346,16 +378,19 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
             steps = _most([max(1, round(seconds / pace))], dev)[0]
 
         def issue():
-            state["params"], state["opt"], value = prog.train_step(state["params"], state["opt"], Y)
+            state["params"], state["opt"], value = prog.train_step(state["params"], state["opt"],
+                                                                   data)
             return value
     elif kind == "build":
+        if not hasattr(prog, "build"):
+            raise ValueError(f"{cell.name}: {model.__name__} has no state build")
         for _ in range(tr["warm_builds"]):
-            prog.build(params, Y)
+            prog.build(params, data)
         kept, state = {}, {"n": 0}
         pick = seed % tr["check_pick"]
 
         def issue():
-            s = prog.build(params, Y)
+            s = prog.build(params, data)
             if state["n"] == pick:
                 kept["picked"] = s
             kept["last"] = s
@@ -368,7 +403,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     setup_s = time.perf_counter() - t_start
-    ops = (program.STATS_FWD_OP,) + ((program.STATS_BWD_OP,) if kind == "train" else ())
+    ops = tuple(model.STATS_OPS[kind])
     done, failed, window_s = _window(issue, seconds, dev, steps)
     if traced:
         item_s = window_s / done
@@ -393,7 +428,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
             log(f"ranks: {ranks[1]}, {done} steps on rank 0, step_gap {most + least} "
                 f"({steps} agreed a window, {pace * 1e3:.2f} ms a set-up step)")
         else:
-            del issue, state, params, Y, opt
+            del issue, state, params, data, opt
             _free(dev)
             return None
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
@@ -409,10 +444,10 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
             f"{1e3 * item_s:.4f} ms an item untraced, {1e3 * t.window_s / done_t:.4f} traced, "
             f"{1e3 * t.busy_s / done_t:.4f} busy")
         cur = state["params"] if kind == "train" else params
-        validated = _validate(t, cur, Y, ops, dev, log)
+        validated = _validate(t, model, cur, data, ops, dev, log)
         # the readers see this card's share: its rows of the points
-        local = shape if ranks is None else dict(shape, N=Y.shape[0])
-        reading = Reading(t, done_t, item_s, local, validated)
+        local = shape if ranks is None else dict(shape, N=data[0].shape[0])
+        reading = Reading(t, done_t, item_s, local, validated, model)
         for m in cell.per_layer:
             value = load_reader(m).read(reading)
             if value is not None:
@@ -427,13 +462,14 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     # the check: the program's state is freed, then the reference runs
-    del issue, state, params, Y
+    del issue, state, params, data
     if kind == "train":
         del opt
     _free(dev)
     t_ref = time.perf_counter()
     detail = {} if numbers_out is not None else None
-    params0, Y0 = problem.draw(shape, seed, dev, tr.get("perturb"))
+    params0, data0 = model.draw(shape, seed, dev, tr.get("perturb"))
+    reference = model.reference
     num = reference.Numerics.of("float64", problem.DTYPES[shape["dtype"]])
     key = (json.dumps(shape, sort_keys=True), json.dumps(tr, sort_keys=True), seed)
     if ref_cache is not None and key not in ref_cache:
@@ -441,11 +477,11 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
     ref = None if ref_cache is None else ref_cache.get(key)
     if kind == "train":
         if ref is None:
-            ref = reference.train(params0, Y0, tr["check_steps"], tr.get("lr", 1e-2), num)
+            ref = reference.train(params0, *data0, tr["check_steps"], tr.get("lr", 1e-2), num)
         numbers = check.train_numbers(checked, ref, params0, detail)
     else:
         if ref is None:
-            ref = reference.build(params0, Y0, num)
+            ref = reference.build(params0, *data0, num)
         numbers = check.merge([check.build_numbers(s, ref) for s in kept.values()])
     if ref_cache is not None:
         ref_cache[key] = ref

@@ -1,11 +1,15 @@
-"""The untraced step time less the traced device time of the statistics
-op's forward and reverse kernels a step: the epilogue, Adam, the per-point
-terms and the host's share."""
-from gpbench import program
+"""The untraced step time less the traced device time a step of the
+model's statistics ops (`STATS_OPS["train"]` of `gpbench/models/<model>.py`:
+the GP-LVM's fused op forward and reverse; the regression's K_fu op and
+its two products, each forward and reverse): the epilogue, Adam, the
+per-point terms and the host's share."""
 
 
 def read(r):
-    fwd, bwd = r.op_seconds(program.STATS_FWD_OP), r.op_seconds(program.STATS_BWD_OP)
-    if fwd is None or bwd is None:
-        return None
-    return 1e3 * (r.per_item_s() - fwd - bwd)
+    t = r.per_item_s()
+    for op, calls in r.model.STATS_OPS["train"].items():
+        s = r.op_seconds(op)
+        if s is None:
+            return None
+        t -= s * calls
+    return 1e3 * t

@@ -1,8 +1,7 @@
-"""A state build's least work (the forward statistics, the refold and the
-per-point terms) at the card's published peaks, over the untraced build
-time."""
-from gpbench import work
+"""A state build's least work (the model's `STEP_WORK["build"]`: for the
+GP-LVM the forward statistics, the refold and the per-point terms) at the
+card's published peaks, over the untraced build time."""
 
 
 def read(r):
-    return 100 * work.bound_s(work.state_build(*r.shapes()), r.shape["dtype"]) / r.per_item_s()
+    return r.step_mfu("build")

@@ -1,7 +1,6 @@
-"""The whole training step's least work at the card's published peaks,
-over the untraced step time."""
-from gpbench import work
+"""The whole training step's least work (the model's `STEP_WORK["train"]`)
+at the card's published peaks, over the untraced step time."""
 
 
 def read(r):
-    return 100 * work.bound_s(work.train_step(*r.shapes()), r.shape["dtype"]) / r.per_item_s()
+    return r.step_mfu("train")

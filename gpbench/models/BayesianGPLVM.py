@@ -1,6 +1,6 @@
-"""The system under test, as a configuration names it: the calls the
-`repro_torch` GP-LVM facade (`BayesianGPLVM`) makes, driven by the
-benchmark's loop so that a window ends on time.
+"""The Bayesian GP-LVM with an RBF kernel, as the `repro_torch` facade
+(`BayesianGPLVM`) runs it, driven by the benchmark's loop so that a window
+ends on time.
 
   * a training step is `core.inference.fit_adam`'s: `value_and_grad` of
     `core.gplvm.loss` (the facade's `_loss`) through the configured
@@ -13,7 +13,15 @@ benchmark's loop so that a window ends on time.
     facade's `_stats`) and `serve.state.build_state`, with nothing cached.
 
 Each call runs under a `record_function` span named after its layer, the
-benchmark's own spans around the calls into the program.
+benchmark's own spans around the calls into the program. The data is
+`(Y,)`; the reference is `gpbench/reference/gplvm.py`.
+
+Faults planted under the fused statistics op (`FAULTS`):
+
+  * `half_batch`: the op sees only the first half of the points and
+    doubles what it sums (the mean taken over the rest); its reverse gives
+    the left-out points no gradient;
+  * `altered`: one entry of psi2 is wrong where the forward op produces it.
 """
 from __future__ import annotations
 
@@ -23,28 +31,39 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
+from gpbench import faults, problem, work
+from gpbench.reference import gplvm as reference  # noqa: F401  (the model's reference)
+
 # the autograd Function of the fused statistics op, and its reverse node:
 # what the traced metrics attribute device time to
 STATS_FWD_OP = "_SuffStats"
 STATS_BWD_OP = "_SuffStatsBackward"
+STATS_OPS = {"train": {STATS_FWD_OP: 1, STATS_BWD_OP: 1}, "build": {STATS_FWD_OP: 1}}
+STEP_WORK = {"train": work.train_step, "build": work.state_build}
+ROOFLINES = {"stats_fwd": (STATS_FWD_OP, work.stats_fwd),
+             "stats_bwd": (STATS_BWD_OP, work.stats_bwd)}
 
 
-class GPLVM:
+def draw(shape, seed: int, device, perturb=None):
+    """(params, (Y,)): `gpbench.problem`'s draw."""
+    params, Y = problem.draw(shape, seed, device, perturb)
+    return params, (Y,)
+
+
+class Program:
     """A configured Bayesian GP-LVM: its training step and its state build.
     The program is imported here, not with this module, so that a run sets
     the configuration's environment first."""
 
-    def __init__(self, config: dict, lr: float, mesh: Optional[str] = None):
+    def __init__(self, config: dict, lr: float, mesh: Optional[str] = None, device="cuda"):
         """`mesh`: None for one process, or the device type ("cuda", or
         "cpu" for a gloo group) of a mesh over the initialized process
-        group, one rank a device."""
+        group, one rank a device. The data's device is the draw's."""
         from repro_torch.core import distributed, gplvm, inference
         from repro_torch.gp.kernels import RBF
         from repro_torch.optim import AdamConfig, adam_init, adam_update
         from repro_torch.serve.state import build_state
 
-        if config["model"] != "BayesianGPLVM":
-            raise ValueError(f"model {config['model']!r}: the benchmark drives BayesianGPLVM only")
         if config["kernel"] != "rbf":
             raise ValueError(f"kernel {config['kernel']!r}: the benchmark drives RBF only")
         self.kernel = RBF(config["Q"])
@@ -64,46 +83,94 @@ class GPLVM:
         self._adam_init, self._adam_update = adam_init, adam_update
         self._build_state = build_state
 
-    def place(self, params, Y):
-        """(params, Y) as this process holds them: all of it on one card;
+    def place(self, params, data):
+        """(params, data) as this process holds them: all of it on one card;
         with a mesh this rank's rows of Y and of the local parameters
         (`distributed.shard_gp_params`, `shard`), copied so that the rest
         of the draw can be freed, and the globals as the group's first
         rank holds them."""
         if self.mesh is None:
-            return params, Y
+            return params, data
         params = self._distributed.shard_gp_params(params, self.mesh)
         params = {k: v.clone() if k in self.local_keys else v for k, v in params.items()}
-        return params, self._distributed.shard(Y, self.mesh).clone()
+        return params, (self._distributed.shard(data[0], self.mesh).clone(),)
 
     def adam_init(self, params):
         return self._adam_init(params, self.adam)
 
-    def train_step(self, params, opt, Y):
+    def train_step(self, params, opt, data):
         """(params, opt, the loss before the update)."""
         with record_function("gpbench.loss_and_grad"):
-            value, grads = self._value_and_grad(self.loss, params, (Y,))
+            value, grads = self._value_and_grad(self.loss, params, data)
         with record_function("gpbench.adam"):
             params, opt, _ = self._adam_update(grads, opt, params, self.adam)
         return params, opt, value
 
     @torch.no_grad()
-    def build(self, params, Y):
+    def build(self, params, data):
         """The served state (`serve.state.PosteriorState`), on one card."""
         if self.mesh is not None:
             raise ValueError("the benchmark builds the served state on one card only")
         with record_function("gpbench.stats"):
-            stats = self.stats(params, Y)
+            stats = self.stats(params, *data)
         with record_function("gpbench.build_state"):
             return self._build_state(self.kernel, params, stats)
 
 
-def kernels_alone():
-    """B1 and B2 as the fused op launches them, outside autograd, for timing
-    them alone: (forward(mu, S, Y, Z, v, l), backward(..., g2, gY)), or
-    None where the program has no such wrappers."""
+def timed_alone(params, data, dev):
+    """B1 and B2 as the fused op launches them, outside autograd, at these
+    inputs (the cotangents 1e-3 throughout): {op: (fn, args, 1)}, or None
+    where the program has no such wrappers."""
     try:
         from repro_torch.kernels import ops
-        return ops.suffstats_cuda, ops.suffstats_bwd_cuda
+        fwd, bwd = ops.suffstats_cuda, ops.suffstats_bwd_cuda
     except (ImportError, AttributeError):
         return None
+    Y = data[0]
+    M, D = params["Z"].shape[0], Y.shape[1]
+    args = (params["q_mu"], torch.exp(params["q_logS"]), Y, params["Z"],
+            torch.exp(params["kern"]["log_variance"]),
+            torch.exp(params["kern"]["log_lengthscale"]))
+    cot = (torch.full((M, M), 1e-3, device=dev, dtype=Y.dtype),
+           torch.full((M, D), 1e-3, device=dev, dtype=Y.dtype))
+    return {STATS_FWD_OP: (fwd, args, 1), STATS_BWD_OP: (bwd, (*args, *cot), 1)}
+
+
+_FWD = ("suffstats_cuda", "suffstats_fused_plain")
+_BWD = ("suffstats_bwd_cuda", "suffstats_vjp_plain")
+
+
+def half_batch():
+    def fwd(orig):
+        def f(mu, S, Y, Z, v, l, **kw):
+            h = mu.shape[0] // 2
+            psi2, psiY = orig(mu[:h], S[:h], Y[:h], Z, v, l, **kw)
+            return 2 * psi2, 2 * psiY
+        return f
+
+    def bwd(orig):
+        def f(mu, S, Y, Z, v, l, g2, gY, **kw):
+            h = mu.shape[0] // 2
+            dmu, dS, dY, dZ, dv, dl = orig(mu[:h], S[:h], Y[:h], Z, v, l, 2 * g2, 2 * gY, **kw)
+
+            def pad(t, like):
+                return torch.cat([t, torch.zeros_like(like[h:])])
+            return pad(dmu, mu), pad(dS, S), pad(dY, Y), dZ, dv, dl
+        return f
+
+    return faults.patched(_FWD, _BWD, fwd, bwd)
+
+
+def altered(factor: float = 1.5):
+    def fwd(orig):
+        def f(*args, **kw):
+            psi2, psiY = orig(*args, **kw)
+            psi2 = psi2.clone()
+            psi2[0, 0] = psi2[0, 0] * factor
+            return psi2, psiY
+        return f
+
+    return faults.patched(_FWD, _BWD, fwd, None)
+
+
+FAULTS = {"half": half_batch, "alter": altered}

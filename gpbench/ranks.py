@@ -64,7 +64,7 @@ def _rank(rank: int, world: int, spec: dict) -> None:
         for seed, mode in spec["runs"]:
             t0 = spec["t_start"] if spec["t_start"] is not None else time.perf_counter()
             numbers = {} if spec["numbers"] else None
-            context, plant = faults.planted(mode)
+            context, plant = faults.planted(mode, cell.model)
             with context:
                 result = harness.run(cell, seed, spec["seconds"], spec["traced"], dev, t0,
                                      log=log, shape_override=spec["shape"], plant=plant,

@@ -11,8 +11,9 @@ computed one precision below the configuration's: float32 for float64,
 TF32 for float32, against the float64 reference), for float32
 configurations "control-refold" and "control-stats" (the refold in TF32,
 the statistics in bfloat16: `gpbench.faults.CONTROLS`), and the planted
-faults of `gpbench.faults`: "half", "alter", "unchanged", and on several
-cards "left-out" and "twice". `--mode` takes a comma-separated list; the
+faults: the model's "half" and "alter" (`FAULTS` of
+`gpbench/models/<model>.py`), "unchanged", and on several cards
+"left-out" and "twice" (`gpbench.faults`). `--mode` takes a comma-separated list; the
 modes other than "program" run on the first `--others` seeds only. All
 runs share one process (on several cards, one process a rank, through
 `gpbench/ranks.py`), and the runs of one seed one reference. Prints one
@@ -76,7 +77,7 @@ def main(argv=None) -> int:
     for seed, mode in runs:
         t0 = time.perf_counter()
         numbers = {}
-        context, plant = faults.planted(mode)
+        context, plant = faults.planted(mode, cell.model)
         with context:
             r = harness.run(cell, seed, args.seconds, False, dev, t0, plant=plant,
                             numbers_out=numbers, ref_cache=ref_cache,

@@ -40,7 +40,7 @@ UNLINKED = "no launching call"
 # the runtime calls that hold the host until the device has caught up
 BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
             "cudaMemcpy")
-# one of these benchmark spans (`gpbench/program.py`) wraps each step or build
+# one of these benchmark spans (`gpbench/models/`) wraps each step or build
 ITEM_SPANS = ("gpbench.adam", "gpbench.build_state")
 AGREE = 1e-3  # the device seconds put down, against the window's busy ones, at most this apart
 

@@ -1,6 +1,9 @@
-"""On the card (skipped elsewhere): a short run of each cell at a small
-size through the kernels, correct, with the trace's attribution of the
-statistics op's kernels agreeing with their times alone.
+"""On the card (skipped elsewhere): a short run of each cell through the
+kernels, correct, with the trace's attribution of the statistics ops'
+kernels agreeing with their times alone: the GP-LVM cells at a small
+size, the regression at its own (at 262,144 points K_fu's kernel runs in
+0.08 ms, under the host's time to launch it, so timed alone back to back
+it reads the launches: 0.13 ms).
 
     python -m pytest -q -m cuda gpbench/tests/test_gpbench_cuda.py
 """
@@ -12,6 +15,8 @@ import torch
 from gpbench import harness
 
 SMALL = {"N": 262_144}
+SIZE = {"gplvm-2p24.fit": SMALL, "gplvm-paper.fit": SMALL, "gplvm-2p24.build": SMALL,
+        "sgpr-paper.fit": {}}
 
 
 @pytest.fixture
@@ -22,12 +27,12 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["gplvm-2p24.fit", "gplvm-paper.fit", "gplvm-2p24.build"])
+@pytest.mark.parametrize("name", sorted(SIZE))
 def test_traced_run_on_the_card(card, name, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_TUNE", "0")
     lines = []
     r = harness.run(harness.load_cell(name), 21, 1.0, True, card, time.perf_counter(),
-                    shape_override=SMALL, log=lines.append)
+                    shape_override=SIZE[name], log=lines.append)
     assert r["correct"], (r["checks"], lines)
     assert r["device"]["busy_s"] > 0
     checks = [x for x in lines if x.startswith("trace check:")]

@@ -51,8 +51,10 @@ import sys, time, json
 sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]
 from gpbench import harness
 from gpbench.reference import gplvm as R
+from gpbench.reference import sgpr as RS
 R.BLOCK_ELEMENTS = 1 << 14
-for name in ("gplvm-paper.fit", "gplvm-2p24.build"):
+RS.BLOCK_ELEMENTS = 1 << 12
+for name in ("gplvm-paper.fit", "gplvm-2p24.build", "sgpr-paper.fit"):
     cell = harness.load_cell(name)
     harness.run(cell, 5, 0.05, True, "cpu", time.perf_counter(),
                 shape_override={{"N": 500, "M": 8}}, log=lambda m: None)

@@ -1,7 +1,7 @@
 """BENCHMARK.json against the files it names, and the rules the harness
 relies on: every cell finds its configuration, traffic mix, limits and
-readers by name, and every configuration names the model the harness
-drives."""
+readers by name, and every configuration names a model that has a module
+under `gpbench/models/`."""
 import json
 import re
 from pathlib import Path
@@ -41,7 +41,8 @@ def test_names_and_keys():
         assert c["file"].startswith("gpbench/") and (ROOT / c["file"]).is_file()
         config = json.loads((ROOT / c["file"]).read_text())
         assert config["reduced"] == c["reduced"]
-        assert config["model"] == "BayesianGPLVM"
+        assert (ROOT / "gpbench" / "models" / f"{config['model']}.py").is_file()
+        assert harness.model_of(config["model"]).__name__ == f"gpbench.models.{config['model']}"
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -59,6 +60,8 @@ def test_cell_loads(name):
         numbers = numbers | RANK_NUMBERS
         assert RANK_NUMBERS <= set(cell.limits)
     assert cell.limits and set(cell.limits) <= numbers
+    assert cell.traffic["kind"] in cell.model.STATS_OPS
+    assert cell.model.__name__ == f"gpbench.models.{cell.config['model']}"
 
 
 def test_every_reader_has_an_entry():
@@ -74,9 +77,23 @@ def test_readers_declare_nothing_of_their_own():
         assert not {"UNIT", "LAYER", "MOVES"} & set(vars(mod)), m["name"]
 
 
-def test_program_rejects_another_model():
-    from gpbench import program
-
-    config = dict(harness.load_cell(CELLS[0]).config, model="SparseGPRegression")
-    with pytest.raises(ValueError, match="BayesianGPLVM"):
-        program.GPLVM(config, lr=1e-2)
+def test_program_rejects_another_model(tmp_path):
+    """A configuration whose model has no module fails as its cell loads,
+    naming the model; a model's program refuses a kernel it does not drive."""
+    bench = json.loads(json.dumps(BENCH))
+    (tmp_path / "configs").mkdir()
+    (tmp_path / "limits").mkdir()
+    (tmp_path / "traffic").mkdir()
+    (tmp_path / "models").mkdir()
+    config = dict(harness.load_cell(CELLS[0]).config, model="NoSuchGP")
+    (tmp_path / "configs" / "nosuch.json").write_text(json.dumps(config))
+    (tmp_path / "traffic" / "fit.json").write_text(json.dumps({"kind": "train"}))
+    (tmp_path / "limits" / "nosuch.fit.json").write_text("{}")
+    bench["workloads"].append({"name": "nosuch.fit", "config": "nosuch", "traffic": "fit",
+                               "chips": 1, "why": "a model with no module"})
+    with pytest.raises(KeyError, match="NoSuchGP"):
+        harness.load_cell("nosuch.fit", bench, tmp_path)
+    for model in ("BayesianGPLVM", "SparseGPRegression"):
+        config = dict(harness.load_cell(CELLS[0]).config, kernel="matern32")
+        with pytest.raises(ValueError, match="RBF only"):
+            harness.model_of(model).Program(config, lr=1e-2, device="cpu")

@@ -9,7 +9,7 @@ import pytest
 import torch
 from torch.profiler import record_function
 
-from gpbench import harness, problem, program, spans, trace
+from gpbench import harness, spans, trace
 
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 FWD, STATS, EPI, BWD, ADAM = spans.SPANS
@@ -138,17 +138,18 @@ def test_no_window_reads_nothing():
 def test_the_benchmarks_step_and_build_open_each_span_once_an_item(kind, entered):
     """Two steps or builds of the paper cell's configuration at a small
     size, in a window under the benchmark's profiler."""
-    shape = dict(harness.load_cell("gplvm-paper.fit").config, N=500, M=8)
-    prog = program.GPLVM(shape, lr=1e-2)
-    params, Y = problem.draw(shape, 5, "cpu")
+    cell = harness.load_cell("gplvm-paper.fit")
+    shape = dict(cell.config, N=500, M=8)
+    prog = cell.model.Program(shape, lr=1e-2, device="cpu")
+    params, data = cell.model.draw(shape, 5, "cpu")
     opt = prog.adam_init(params)
     with trace.profiling() as holder:
         with record_function(trace.WINDOW_SPAN):
             for _ in range(2):
                 if kind == "train":
-                    params, opt, _ = prog.train_step(params, opt, Y)
+                    params, opt, _ = prog.train_step(params, opt, data)
                 else:
-                    prog.build(params, Y)
+                    prog.build(params, data)
     st = spans.attribute(holder[0].events(), trace.summarize(holder[0], ()).busy_s)
     assert st.items == 2
     assert {s: n / st.items for s, n in st.calls.items()} == entered
